@@ -9,7 +9,7 @@ and one line builds the Fisher matrix
 
 for a 5-parameter zheng07 HOD — the standard survey-forecast computation
 (expected parameter covariance = F^-1), plus an ngal prior as a bonus row.
-Runs on CPU or TPU; uses the checked-in bolplanck wp tabulation.
+Runs on CPU or GPU; uses the checked-in bolplanck wp tabulation.
 """
 
 from pathlib import Path
@@ -34,7 +34,7 @@ theta0 = jnp.asarray([model.param_dict[k] for k in names], jnp.float64)
 
 # Vector-in, vector-out prediction; float64 for clean derivatives.
 predict = make_predictor(halotab, model, dtype=jnp.float64,
-                         vectorized=False, engine="xla")
+                         vectorized=False)
 
 
 def observables(theta):

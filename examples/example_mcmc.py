@@ -13,8 +13,8 @@ import matplotlib.pyplot as plt
 import numpy as np
 
 import tabcorr_tpu as tt
-from tabcorr_tpu.mcmc import make_gaussian_logpost, run_ensemble
-from tabcorr_tpu.predictor import make_predictor
+from tabcorr_tpu.mcmc import make_gaussian_logpost_batched, run_ensemble
+from tabcorr_tpu.predictor import make_multi_predictor
 
 FIXTURE = (Path(__file__).absolute().parent.parent / "tests" / "data" /
            "examples" / "bolplanck_wp.hdf5")
@@ -42,34 +42,16 @@ walkers0 = jnp.asarray(
     np.array([truth[k] for k in names])[None]
     + 0.05 * rng.normal(size=(n_walkers, len(names))), dtype=jnp.float32)
 
-# On TPU, the flagship path: one Pallas bundle call evaluates the whole
-# half-ensemble's likelihood (9.3M walker-steps/s at 131k walkers for a
-# joint wp+xi likelihood; see docs/performance.md).  Elsewhere, the
-# per-walker vmapped XLA path.
-if jax.default_backend() == "tpu":
-    from tabcorr_tpu.mcmc import make_gaussian_logpost_batched
-    from tabcorr_tpu.predictor import make_multi_predictor
-
-    # batch_tile = the half-ensemble size (the sampler proposes one half
-    # against the other), so no padding work is wasted.
-    predict_all = make_multi_predictor([halotab], model,
-                                       batch_tile=n_walkers // 2)
-    log_prob = make_gaussian_logpost_batched(
-        predict_all, names, base, [wp_data], [inv_cov],
-        ngal_data=ngal_true, ngal_sigma=0.02 * ngal_true, bounds=bounds)
-    vectorized = True
-else:
-    predict_one = make_predictor(halotab, model, dtype=jnp.float32,
-                                 vectorized=False, jit=False, engine="xla")
-    # A number-density constraint breaks the logMmin-logM1 degeneracy.
-    log_prob = make_gaussian_logpost(
-        predict_one, names, base, wp_data, inv_cov,
-        ngal_data=ngal_true, ngal_sigma=0.02 * ngal_true, bounds=bounds)
-    vectorized = False
+# One batched call evaluates the whole half-ensemble's likelihood (the
+# sampler proposes one half against the other).  A number-density
+# constraint breaks the logMmin-logM1 degeneracy.
+predict_all = make_multi_predictor([halotab], model)
+log_prob = make_gaussian_logpost_batched(
+    predict_all, names, base, [wp_data], [inv_cov],
+    ngal_data=ngal_true, ngal_sigma=0.02 * ngal_true, bounds=bounds)
 
 chain, log_p, accept = run_ensemble(
-    jax.random.key(1), log_prob, walkers0, n_steps=500,
-    vectorized=vectorized)
+    jax.random.key(1), log_prob, walkers0, n_steps=500, vectorized=True)
 samples = np.asarray(chain[200:]).reshape(-1, len(names))
 print(f"acceptance fraction: {float(accept):.2f}")
 for i, name in enumerate(names):

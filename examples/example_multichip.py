@@ -1,4 +1,4 @@
-"""Multi-chip batched prediction + MCMC through the Pallas bundle.
+"""Multi-device batched prediction + MCMC through the joint predictor.
 
 Shards a zheng07 wp + xi_ell parameter batch over every available device
 (``dp`` mesh axis; tabulations replicate — they are a few MB) and runs a
@@ -7,9 +7,9 @@ The hot loop contains ZERO cross-device collectives: each device evaluates
 an independent slice of the walker ensemble, so throughput scales linearly
 with the mesh.
 
-Runs anywhere: on a TPU pod slice it uses the real chips; on CPU set
+Runs anywhere: on a multi-GPU host it uses every card; on CPU set
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu
-to demonstrate the sharding on 8 virtual devices (interpret mode).
+to demonstrate the sharding on 8 virtual devices.
 """
 
 from pathlib import Path
@@ -33,9 +33,8 @@ print(f"devices: {n_dev} ({jax.devices()[0].platform})")
 wp_tab = tt.TabCorr.read(FIXTURES / "bolplanck_wp.hdf5")
 model = tt.Zheng07Model(threshold=-18, redshift=wp_tab.attrs["redshift"])
 
-# --- dp-sharded bundle predictor: one kernel per batch tile per device.
-predict = make_multi_predictor([wp_tab], model, engine="bundle",
-                               batch_tile=64, mesh=mesh)
+# --- dp-sharded predictor: each device evaluates its slice of the batch.
+predict = make_multi_predictor([wp_tab], model, mesh=mesh)
 
 rng = np.random.default_rng(42)
 batch = 512 * n_dev
@@ -47,7 +46,8 @@ print(f"sharded batch predict: {batch} evaluations -> wp {wp.shape}")
 
 # --- synthetic data + batched posterior -> vectorized ensemble MCMC.
 truth = dict(model.param_dict)
-[(_, wp_data)] = predict(params_batch(model, {}, (1,), dtype=jnp.float32))
+[(_, wp_data)] = predict(params_batch(model, {}, (n_dev,),
+                                     dtype=jnp.float32))
 data = np.asarray(wp_data[0], np.float64).ravel()
 inv_cov = np.diag(1.0 / (0.05 * np.abs(data)) ** 2)
 

@@ -8,7 +8,7 @@ prior — differentiates exactly and one Adam run recovers the occupation
 function with no assumed functional form.  No reference counterpart
 (the reference's predict consumes halotools models only).
 
-Runs in a few seconds on CPU; the same code jit-compiles for TPU.
+Runs in a few seconds on CPU; the same code jit-compiles for a GPU.
 """
 
 from pathlib import Path

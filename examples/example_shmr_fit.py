@@ -33,10 +33,9 @@ halotab = tt.TabCorr.read(FIXTURE)
 model = tt.Leauthaud11Model(threshold=10.5,
                             redshift=halotab.attrs["redshift"])
 
-# Leauthaud11 uses the XLA engine (the SHMR gather does not lower in
-# Pallas); float64 keeps the NUTS energies clean.
+# float64 keeps the NUTS energies clean.
 predict = make_predictor(halotab, model, dtype=jnp.float64,
-                         vectorized=False, engine="xla")
+                         vectorized=False)
 
 # --- synthetic data at the fiducial parameters -------------------------
 SAMPLED = ("smhm_m1_0", "smhm_beta_0", "scatter_model_param1")

@@ -65,7 +65,7 @@ plt.tight_layout(pad=0.3)
 plt.savefig("wp_decomposition.png", dpi=300)
 plt.close()
 
-# Parameter dependence: here's where the TPU path shines — all 1000 models
+# Parameter dependence: here's where the batched path shines — all 1000 models
 # evaluate in ONE batched kernel call instead of a Python loop.
 from tabcorr_tpu.predictor import make_predictor, params_batch
 

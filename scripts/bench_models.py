@@ -1,14 +1,12 @@
-"""Per-model-family prediction throughput: families x engines.
+"""Per-model-family prediction throughput.
 
 Measures batched (ngal, wp) prediction rates on the reference's
-bolplanck wp fixture for every built-in HOD family through each
-eligible engine (bundle / fused / xla), so the SHMR families' bundle
-eligibility (the bisection-seeded in-kernel inversion) has a measured
+bolplanck wp fixture for every built-in HOD family, so the costly
+occupations (SHMR inversions, the incomplete gamma) have a measured
 number next to zheng07's, on whatever backend is active.
 
-Prints one JSON line per (family, engine):
-  {"model": ..., "engine": ..., "predictions_per_s": ..., "batch": ...,
-   "platform": ...}
+Prints one JSON line per family:
+  {"model": ..., "predictions_per_s": ..., "batch": ..., "platform": ...}
 
 Usage: python scripts/bench_models.py [--batch 8192] [--steps 30] [--cpu]
 """
@@ -31,29 +29,20 @@ def main():
                     help="pin the host CPU backend")
     ap.add_argument("--families", default=None,
                     help="comma-separated family subset (default: all)")
-    ap.add_argument("--engines", default="bundle,fused,xla",
-                    help="comma-separated engine subset (the Pallas "
-                         "engines run in interpret mode on CPU hosts, "
-                         "which is orders of magnitude slower than "
-                         "their on-chip rates)")
     args = ap.parse_args()
-    engines = tuple(e.strip() for e in args.engines.split(",") if e.strip())
 
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    # Persistent compilation cache: at production batch a full sweep is
-    # ~18 kernel compiles; reruns then measure, not compile.
-    jax.config.update("jax_compilation_cache_dir", "/tmp/tabcorr_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from tabcorr_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
-    import numpy as np
 
     import tabcorr_tpu as tt
-    from tabcorr_tpu.predictor import make_multi_predictor, params_batch
+    from tabcorr_tpu.predictor import make_predictor, params_batch
 
     tab = tt.TabCorr.read(Path(__file__).absolute().parent.parent /
-                          "tests/data/examples/bolplanck_wp.hdf5")
+                          "tests/data/examples/bolplanck_wp.npz")
     z = tab.attrs["redshift"]
     families = [
         ("zheng07", tt.Zheng07Model(threshold=-18, redshift=z)),
@@ -63,14 +52,12 @@ def main():
         ("zu_mandelbaum15",
          tt.ZuMandelbaum15Model(threshold=10.5,
                                 prim_haloprop_key="halo_mvir")),
-        # CLF: bundle-eligible since the Mosaic-safe incomplete-gamma /
-        # arctan hybrids (utils.special / utils.backend) replaced
-        # igammac and atan under pallas_lowering.
+        # CLF: the upper incomplete gamma per node.
         ("cacciato09",
          tt.Cacciato09Model(threshold=9.5, redshift=z,
                             prim_haloprop_key="halo_mvir")),
         # Two SHMR inversions + the branchless quiescent fraction per
-        # node: the most occupation-heavy bundle-eligible family.
+        # node: the most occupation-heavy family.
         ("tinker13", tt.Tinker13Model(threshold=10.5, redshift=z)),
     ]
     platform = jax.default_backend()
@@ -79,33 +66,20 @@ def main():
         families = [f for f in families if f[0] in keep]
 
     for name, model in families:
-        for engine in engines:
-            try:
-                if engine == "fused":
-                    pred = tab.make_predictor(model, vectorized=True,
-                                              engine="fused",
-                                              dtype=jnp.float32)
-                    run = pred
-                else:
-                    f = make_multi_predictor([tab], model, engine=engine)
-                    run = lambda p: f(p)[0]  # noqa: E731
-            except ValueError:
-                continue
-            params = params_batch(model, {}, (args.batch,),
-                                  dtype=jnp.float32)
-            for _ in range(args.warmup):
-                out = run(params)
-                jax.block_until_ready(out)
-            t0 = time.perf_counter()
-            for _ in range(args.steps):
-                out = run(params)
-                jax.block_until_ready(out)
-            dt = (time.perf_counter() - t0) / args.steps
-            rate = args.batch / dt
-            print(json.dumps({
-                "model": name, "engine": engine,
-                "predictions_per_s": round(rate, 1),
-                "batch": args.batch, "platform": platform}), flush=True)
+        run = make_predictor(tab, model)
+        params = params_batch(model, {}, (args.batch,), dtype=jnp.float32)
+        for _ in range(args.warmup):
+            out = run(params)
+            jax.block_until_ready(out)
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            out = run(params)
+            jax.block_until_ready(out)
+        dt = (time.perf_counter() - t0) / args.steps
+        rate = args.batch / dt
+        print(json.dumps({
+            "model": name, "predictions_per_s": round(rate, 1),
+            "batch": args.batch, "platform": platform}), flush=True)
 
 
 if __name__ == "__main__":

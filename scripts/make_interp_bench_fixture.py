@@ -10,7 +10,7 @@ tables' phase-space-grid layout (reference: scripts/tabulate_snapshot.py
 tabcorr/database.py:56-59 defines the conc_gal_bias grid).
 
 Real pair counts of real mock populations; deterministic given the
-seeds.  Run on a TPU host (device pair counting) — a few minutes.
+seeds.  Run on a host with an accelerator or a g++ build — a few minutes.
 """
 
 import sys

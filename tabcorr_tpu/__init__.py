@@ -1,6 +1,6 @@
-"""tabcorr_tpu: TPU-native tabulated galaxy correlation functions.
+"""tabcorr_tpu: tabulated galaxy correlation functions on accelerators.
 
-A ground-up JAX/TPU re-design of the halo tabulation method of
+A ground-up JAX re-design of the halo tabulation method of
 Zheng & Guo (2016) with the full capability surface of the reference
 ``tabcorr`` package (johannesulf/TabCorr v1.2.0): tabulation of halo
 correlation functions (wp, xi(s, mu) multipoles, delta sigma), millisecond

@@ -160,10 +160,16 @@ def directory(suite, redshift, i_cosmo=0, i_phase=0, config=None):
 
 def read(suite, redshift, tpcf, i_cosmo=0, i_phase=0, sim_config=None,
          tab_config="default"):
-    """Read a published tabulation (reference: database.py:253-286)."""
+    """Read a published tabulation (reference: database.py:253-286).
+
+    A ``.npz`` copy of the file (``scripts/make_npz_fixtures.py``) is
+    read in place of the HDF5 file when present: it needs no h5py.
+    """
     path = directory(suite, redshift, i_cosmo=i_cosmo, i_phase=i_phase,
-                     config=sim_config)
-    return Interpolator.read(path / f"{tpcf}_{tab_config}.hdf5")
+                     config=sim_config) / f"{tpcf}_{tab_config}.hdf5"
+    if path.with_suffix(".npz").exists():
+        path = path.with_suffix(".npz")
+    return Interpolator.read(path)
 
 
 # Backwards-compatible alias (reference: database.py:290).

@@ -22,11 +22,10 @@ Design differences from the reference, both deliberate:
 
 from __future__ import annotations
 
-import h5py
 import numpy as np
 from scipy.interpolate import CubicSpline
 
-from .io import ColumnTable
+from .io import ColumnTable, open_tree
 from .table import TabCorr
 
 
@@ -169,9 +168,10 @@ class Interpolator:
     # ------------------------------------------------------------------
     @classmethod
     def read(cls, fname):
-        """Read an interpolator (reference schema, interpolator.py:72-96)."""
+        """Read an interpolator (reference schema, interpolator.py:72-96)
+        from an HDF5 or ``.npz`` path."""
         tabcorr_list = []
-        with h5py.File(fname, "r") as fstream:
+        with open_tree(fname) as fstream:
             param_dict_table = ColumnTable.read_hdf5(
                 fstream, "param_dict_table")
             param_dict_table.sort("tabcorr_index")
@@ -183,7 +183,7 @@ class Interpolator:
     def write(self, fname, overwrite=False, max_args_size=1000000,
               matrix_dtype=np.float32):
         """Write an interpolator (reference schema, interpolator.py:98-122)."""
-        with h5py.File(fname, "w" if overwrite else "w-") as fstream:
+        with open_tree(fname, "w" if overwrite else "w-") as fstream:
             self.param_dict_table.write_hdf5(fstream, "param_dict_table")
             for i in range(len(self.param_dict_table)):
                 self.tabcorr_list[i].write(

@@ -4,12 +4,19 @@ The reference stores tables via ``astropy.table.Table.write(..., path=...)``,
 which produces a plain HDF5 dataset with a numpy structured dtype
 (reference: tabcorr/tabcorr.py:414,463; tabcorr/interpolator.py:88-96,119).
 We read and write the same layout with h5py directly, with no astropy
-dependency, via a minimal column-oriented table type.
+dependency, via a minimal column-oriented table type.  h5py is imported
+only when an HDF5 file is opened, so the package imports without it.
+
+The same tree also travels as a flat ``.npz`` archive (written by
+``scripts/make_npz_fixtures.py``), which needs nothing beyond numpy to
+read: each dataset is stored under its HDF5 path, each attribute under
+``<group path>@<name>``.
 """
 
 from __future__ import annotations
 
-import h5py
+from pathlib import Path
+
 import numpy as np
 
 
@@ -99,7 +106,7 @@ class ColumnTable:
         return self.as_structured_array()
 
     # -- HDF5 ------------------------------------------------------------
-    def write_hdf5(self, group: h5py.Group, path: str):
+    def write_hdf5(self, group, path: str):
         """Write as a structured dataset (reference/astropy layout)."""
         group[path] = self.as_structured_array()
 
@@ -107,7 +114,7 @@ class ColumnTable:
     def read_hdf5(cls, source, path: str) -> "ColumnTable":
         """Read a structured dataset written by astropy or by this module."""
         if isinstance(source, (str, bytes)) or hasattr(source, "__fspath__"):
-            with h5py.File(source, "r") as fstream:
+            with open_tree(source) as fstream:
                 return cls.from_structured_array(fstream[path][()])
         return cls.from_structured_array(source[path][()])
 
@@ -125,7 +132,7 @@ def vstack(tables) -> ColumnTable:
     return out
 
 
-def read_attrs(group: h5py.Group) -> dict:
+def read_attrs(group) -> dict:
     """Read HDF5 attributes, decoding bytes to str for convenience keys."""
     attrs = {}
     for key in group.attrs.keys():
@@ -134,3 +141,71 @@ def read_attrs(group: h5py.Group) -> dict:
             value = value.decode("utf-8")
         attrs[key] = value
     return attrs
+
+
+class NpzTree:
+    """Read-only HDF5-group view of a flattened ``.npz`` tree.
+
+    Supports what the readers use: ``attrs``, item access to datasets
+    (numpy arrays, so ``[()]`` works) and subgroups, ``in`` and
+    iteration over child names.
+    """
+
+    def __init__(self, data, prefix=""):
+        self._data = data
+        self._prefix = prefix
+
+    @property
+    def attrs(self):
+        head = self._prefix + "@"
+        return {key[len(head):]: (value.item() if value.ndim == 0 else value)
+                for key, value in self._data.items()
+                if key.startswith(head)}
+
+    def _children(self):
+        names = []
+        for key in self._data:
+            if key.startswith(self._prefix):
+                name = key[len(self._prefix):].split("/")[0]
+                if "@" not in name and name not in names:
+                    names.append(name)
+        return sorted(names)   # h5py's (name) order
+
+    def __contains__(self, key):
+        return key in self._children()
+
+    def __iter__(self):
+        return iter(self._children())
+
+    def __getitem__(self, key):
+        full = self._prefix + key
+        if full in self._data:
+            return self._data[full]
+        if key not in self:
+            raise KeyError(key)
+        return NpzTree(self._data, full + "/")
+
+    def close(self):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def open_tree(path, mode="r"):
+    """Open an HDF5 file, or a ``.npz`` tree (read-only), as a group."""
+    if Path(path).suffix == ".npz":
+        if mode != "r":
+            raise ValueError(".npz trees are read-only.")
+        with np.load(path) as archive:
+            return NpzTree({key: archive[key] for key in archive.files})
+    import h5py
+    return h5py.File(path, mode)
+
+
+def is_group(obj) -> bool:
+    """True for an open HDF5 group or :class:`NpzTree` (not a path)."""
+    return hasattr(obj, "attrs") and hasattr(obj, "__getitem__")

@@ -60,7 +60,7 @@ def ensemble_step(key, walkers, log_prob, log_prob_fn, a=2.0,
     log_prob : (n_walkers,) current log probabilities
     log_prob_fn : callable (n_dim,) -> scalar, pure; with
         ``vectorized=True``, callable (B, n_dim) -> (B,) evaluated on the
-        whole half-ensemble at once (e.g. a Pallas bundle likelihood)
+        whole half-ensemble at once (e.g. a joint multi-table likelihood)
     a : float, stretch scale parameter
 
     Returns
@@ -92,7 +92,7 @@ def run_ensemble(key, log_prob_fn, walkers0, n_steps, a=2.0, thin=1,
 
     ``vectorized=True`` treats ``log_prob_fn`` as a batched
     (B, n_dim) -> (B,) likelihood (e.g. built by
-    :func:`make_gaussian_logpost_batched` around the Pallas bundle
+    :func:`make_gaussian_logpost_batched` around a multi-table
     predictor) and evaluates each half-ensemble in one call.
 
     Returns
@@ -569,8 +569,7 @@ def make_gaussian_logpost_batched(predict_all, param_names, base_params,
 
     ``predict_all`` is a batch-native multi-statistic predictor (dict of
     (B,) arrays -> list of (ngal (B,), xi (B, ...))), e.g. from
-    :func:`~.predictor.make_multi_predictor` with the Pallas bundle
-    engine; ``data_list``/``inv_cov_list`` give one data vector and
+    :func:`~.predictor.make_multi_predictor`; ``data_list``/``inv_cov_list`` give one data vector and
     inverse covariance per statistic.  Returns ``theta (B, n_dim) ->
     (B,)`` for :func:`run_ensemble` with ``vectorized=True``.  The
     number-density constraint (``ngal_data``/``ngal_sigma``) uses the
@@ -597,7 +596,7 @@ def make_gaussian_logpost_batched(predict_all, param_names, base_params,
         for (ngal, xi), data, inv_cov in zip(results, data_list,
                                              inv_cov_list):
             resid = xi.reshape(batch, -1) - data
-            # HIGHEST: the default single-bf16-pass matmul would round
+            # HIGHEST: the default TF32 (GPU) product would round
             # resid to ~2e-3 relative, wiping out the <1e-6 prediction
             # accuracy; this chi^2 contraction is tiny next to predict.
             logp = logp - 0.5 * jnp.einsum(
@@ -638,7 +637,8 @@ def make_gaussian_logpost(predict_fn, param_names, base_params, data,
             params[name] = theta[i]
         ngal, xi = predict_fn(params)
         resid = xi.ravel() - data
-        logp = -0.5 * resid @ inv_cov @ resid
+        logp = -0.5 * jnp.einsum("i,ij,j->", resid, inv_cov, resid,
+                                 precision=jax.lax.Precision.HIGHEST)
         if ngal_data is not None:
             logp = logp - 0.5 * ((ngal - ngal_data) / ngal_sigma) ** 2
         # Out-of-grid Interpolator predictions are NaN (extrapolate=False,

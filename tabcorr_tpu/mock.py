@@ -16,7 +16,7 @@ Design notes
   tabulates with Cython lookup tables).
 * Everything is vectorized over the flattened satellite array; the ragged
   halo->satellite expansion happens on the host (tabulation is a one-time
-  offline step — the TPU hot path is the pair counting that follows).
+  offline step — the hot path is the pair counting that follows).
 """
 
 from __future__ import annotations

@@ -72,7 +72,7 @@ def heaviside_assembias(base, strength, sec_haloprop_percentile, split=0.5,
     # [-1e-3, 1 + 1e-3] has midpoint 0.5 - 6e-17, which rounds to
     # exactly 0.5 in the float32 device paths, flipping the branch
     # between engines.  The 1e-6 tolerance makes the float64 host path
-    # and the float32 device kernels classify such bins identically
+    # and the float32 device path classify such bins identically
     # (percentile midpoints of real multi-bin tabulations are O(0.1)
     # away from any split).
     above = sec_haloprop_percentile >= split - 1e-6

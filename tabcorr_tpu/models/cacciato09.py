@@ -32,10 +32,7 @@ evaluated for the possibly-negative a by
 :func:`~tabcorr_tpu.utils.special.upper_incomplete_gamma` (at the
 published fit a is in (-1/2, 0]).  Everything is a pure, jax-traceable
 function of the parameter dict; gradients flow through the incomplete
-gamma (d/da via XLA's ``igamma_grad_a``) into MCMC/Fisher code.  Under
-``pallas_lowering`` the gamma and arctan swap to branchless Mosaic-safe
-hybrids, so the family runs the fused/bundle engines
-(supports_fused_engine below).
+gamma (d/da via XLA's ``igamma_grad_a``) into MCMC/Fisher code.
 
 Units are halotools': luminosities in Lsun / h^2 (log10 threshold,
 default 9.5), halo masses in Msun / h with the published fit defined
@@ -49,7 +46,7 @@ from __future__ import annotations
 
 import math
 
-from ..utils.backend import arctan, erfc, exp10, get_namespace, log1p
+from ..utils.backend import erfc, exp10, get_namespace, log1p
 from ..utils.special import upper_incomplete_gamma
 from .protocol import CENTRALS, HodModel
 
@@ -98,7 +95,7 @@ def cacciato09_satellites(params, log_prim_haloprop, threshold):
     log_ls = (cacciato09_median_log_luminosity(params, log_mh) +
               _LOG10_0562)
     alpha_sat = -2.0 + params["a_1"] * (
-        1.0 - (2.0 / math.pi) * arctan(
+        1.0 - (2.0 / math.pi) * xp.arctan(
             params["a_2"] * (log_mh - params["log_M_2"])))
     log_phi_sat = (params["b_0"] + params["b_1"] * m12 +
                    params["b_2"] * m12 * m12)
@@ -140,12 +137,6 @@ class Cacciato09Model(HodModel):
 
     param_names = tuple(CACCIATO09_PARAMS)
     param_defaults = dict(CACCIATO09_PARAMS)
-    # Bundle-eligible: inside Pallas traces the incomplete gamma swaps
-    # lax.igammac (no Mosaic lowering) for the branchless Temme-series /
-    # continued-fraction hybrid (utils.special._gamma_upper_lowerable)
-    # and arctan swaps for its odd polynomial (utils.backend.arctan) —
-    # all exp/log/where arithmetic with static loop counts.
-    supports_fused_engine = True
 
     def __init__(self, threshold=9.5, prim_haloprop_key="halo_m180b",
                  sec_haloprop_key=None, redshift=0.0, **params):

@@ -109,18 +109,11 @@ def fshmr_log_mstar(log_mh, params, a, littleh=0.72):
     range clamp to the grid ends; the centrals occupation there is
     0 or 1 to double precision for any sane threshold.
     """
-    from ..utils.backend import in_pallas_lowering
     from ..utils.inversion import monotone_inverse
     xp = get_namespace(log_mh)
     log_mh = xp.asarray(log_mh)
     fwd = lambda ls: behroozi10_log_halo_mass(ls, params, a, littleh)  # noqa: E731
     dfwd = lambda ls: _d_log_mh_d_log_mstar(ls, params, a, littleh)  # noqa: E731
-    if in_pallas_lowering():
-        # Inside Pallas kernels the interp seed's gather cannot lower in
-        # Mosaic; the fixed bisection bracket shrink (where/arithmetic
-        # only) seeds the same Newton refinement instead.
-        return monotone_inverse(fwd, log_mh,
-                                bracket=(_GRID_LO, _GRID_HI), dfn=dfwd)
     # Grid in the query's dtype: mixing a float64 grid into a float32
     # fast path would silently promote every downstream array.
     grid_mstar = xp.linspace(_GRID_LO, _GRID_HI, _GRID_N,
@@ -139,8 +132,8 @@ def leauthaud11_centrals(params, log_prim_haloprop, threshold, a,
     forward derivative already used by the Newton refinement — one
     extra :func:`_d_log_mh_d_log_mstar` evaluation instead of a traced
     JVP through the whole grid-seeded inversion (which would re-run
-    the tangent of every Newton step and roughly double the fused-
-    kernel occupation cost).  First-order in the ~5e-7 residual, the
+    the tangent of every Newton step and roughly double the occupation
+    cost).  First-order in the ~5e-7 residual, the
     same order the generic JVP fallback achieves.  The correction is
     applied AFTER the O(1) subtraction ``threshold - log_fshmr`` so it
     lands at full float32 resolution (see models.zheng07).
@@ -228,10 +221,6 @@ class Leauthaud11Model(HodModel):
 
     param_names = tuple(LEAUTHAUD11_PARAMS)
     param_defaults = dict(LEAUTHAUD11_PARAMS)
-    # Fused/bundle-eligible: inside Pallas kernels the SHMR inversion
-    # swaps its interp seed (a gather Mosaic cannot lower) for a fixed
-    # bisection bracket shrink (see utils.inversion.monotone_inverse).
-    supports_fused_engine = True
 
     def __init__(self, threshold=10.5, modulate_with_cenocc=True,
                  littleh=0.72, prim_haloprop_key="halo_mvir",

@@ -5,7 +5,7 @@ arXiv 2603.18379) essentially free: with one occupation value per
 tabulated halo bin the predicted statistic is an *exact* quadratic
 (auto mode) or linear (cross mode) form in the parameter vector — no
 quadrature, no functional form, and the whole posterior gradient is a
-single MXU contraction.  The reference has no analog (its predict
+single batched contraction.  The reference has no analog (its predict
 consumes halotools models only, reference: tabcorr/tabcorr.py:556-563,
 though it accepts a raw mean-occupation array internally,
 reference: tabcorr/tabcorr.py:616-621); this module makes that internal
@@ -83,10 +83,6 @@ class NonparametricHodModel(HodModel):
     a cell edge) — ``occupation_residual`` is the occupation itself.
     """
 
-    # Parameter count scales with the table (hundreds of names); the
-    # in-kernel occupation would need one scalar slice per name.  The
-    # right fast path is make_occupation_predictor, not the bundle.
-    supports_fused_engine = False
 
     def __init__(self, cells_cen, cells_sat, values_cen=None,
                  values_sat=None, **kwargs):

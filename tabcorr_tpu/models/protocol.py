@@ -35,11 +35,6 @@ class HodModel:
 
     gal_types = (CENTRALS, SATELLITES)
     param_defaults: dict = {}
-    # Whether `occupation` lowers inside a Pallas kernel (the fused /
-    # bundle engines trace it in-kernel).  Models whose occupation uses
-    # ops Mosaic cannot lower (gathers, searchsorted, ...) set this
-    # False; engine='auto' then composes the XLA predictor instead.
-    supports_fused_engine = True
 
     def __init__(self, prim_haloprop_key="halo_mvir",
                  sec_haloprop_key=None, redshift=0.0, **params):
@@ -70,8 +65,8 @@ class HodModel:
         would round it away).  The default recovers it to first order
         via a traced JVP; analytic models should override with an exact
         absorption (see models.zheng07) — it is both more accurate and
-        roughly halves the fused-kernel occupation cost by skipping the
-        tangent arithmetic.
+        roughly halves the occupation cost by skipping the tangent
+        arithmetic.
         """
         import jax
         occ, d = jax.jvp(

@@ -31,9 +31,8 @@ beyond the end control points), with the RESULT clipped to [0, 1]
 the control masses are fixed per model instance, the spline is a LINEAR
 map from the ordinate parameters to piecewise-polynomial coefficients;
 that map is precomputed on the host once (``tinker13_fq_spline_map``)
-and the device evaluation is branchless where/Horner arithmetic — so
-the family stays bundle-eligible and exactly differentiable in the
-ordinates.  With the default 3-point abscissa the spline is a single
+and the device evaluation is branchless where/Horner arithmetic,
+exactly differentiable in the ordinates.  With the default 3-point abscissa the spline is a single
 quadratic (one segment, no selection at all).  Piecewise-LINEAR
 interpolation (constant beyond the ends, ordinates clamped to [0, 1])
 remains available via ``interpolation='linear'``.
@@ -179,8 +178,7 @@ def tinker13_quiescent_fraction(params, log_prim_haloprop,
     polynomial extrapolation beyond the ends, result clipped to [0, 1].
     Evaluation is branchless — per-segment coefficients are scalar
     combinations of the ordinates selected with ``where`` and fed to a
-    Horner loop — so the model stays bundle-eligible (Mosaic lowers
-    clip/where arithmetic; no gathers).  ``interpolation='linear'``
+    Horner loop (no gathers).  ``interpolation='linear'``
     keeps the piecewise-linear variant (constant extrapolation,
     ordinates clamped instead of the result).
 
@@ -304,9 +302,6 @@ class Tinker13Model(HodModel):
 
     param_names = tuple(TINKER13_PARAMS)
     param_defaults = dict(TINKER13_PARAMS)
-    # Bundle-eligible: the SHMR inversions use the Mosaic-safe bisection
-    # seed (see models.leauthaud11) and f_q is clip/where arithmetic.
-    supports_fused_engine = True
 
     def __init__(self, threshold=10.5, sfr_designation="all",
                  quiescent_fraction_abscissa=TINKER13_ABSCISSA,

@@ -13,7 +13,7 @@ with optional central modulation <N_sat> -> <N_cen> <N_sat>
 The satellite power law is evaluated in log space,
 ``exp(ln10 * alpha * (log10(M - M0) - logM1))`` with
 ``log10(M - M0) = logM + log1p(-10^(logM0 - logM))/ln10``, so the float32
-TPU fast path stays accurate to ~1e-7 relative even for M ~ 1e15.
+device path stays accurate to ~1e-7 relative even for M ~ 1e15.
 """
 
 from __future__ import annotations
@@ -48,9 +48,8 @@ def zheng07_centrals(params, log_prim_haloprop, log_prim_res=None):
     halo densities (see utils.backend.erfc).
 
     The standardization multiplies by a precomputed 1/sigma instead of
-    dividing: inside the batched Pallas kernel the division would run on
-    the broadcast (batch, nodes) array, while the reciprocal runs on the
-    (batch, 1) parameter column.
+    dividing: the division would run on the broadcast (batch, nodes)
+    array, while the reciprocal runs on the (batch, 1) parameter column.
 
     ``log_prim_res`` is the float64 residual of float32-rounded node
     positions (ops.predict.TableData.log_prim_quad_lo).  Adding it to
@@ -59,8 +58,8 @@ def zheng07_centrals(params, log_prim_haloprop, log_prim_res=None):
     subtraction ``logM - logMmin`` applies it at ulp(logM - logMmin)
     resolution, recovering the float64 node position exactly where it
     matters — one extra add instead of the generic traced-JVP
-    correction, whose tangent arithmetic roughly doubled the
-    occupation cost in the fused kernel.
+    correction, whose tangent arithmetic roughly doubles the
+    occupation cost.
     """
     inv_sigma = 1.0 / params["sigma_logM"]
     centered = log_prim_haloprop - params["logMmin"]
@@ -89,8 +88,8 @@ def zheng07_satellites(params, log_prim_haloprop, modulate_with_cenocc=False,
     #
     # The ratio is the product 10**(-logM) * 10**logM0 rather than
     # 10**(logM0 - logM): the two factors depend on only ONE of
-    # (node grid, parameter batch) each, so inside the batched Pallas
-    # kernel both exponentials evaluate on small arrays — (1, nodes) and
+    # (node grid, parameter batch) each, so in the batched predictor
+    # both exponentials evaluate on small arrays — (1, nodes) and
     # (batch, 1) — and only the multiply touches the broadcast
     # (batch, nodes) array.  (Nodes within ~1e-6 of the kink see the
     # extra rounding amplified by the log1p, but their occupation is a
@@ -98,8 +97,9 @@ def zheng07_satellites(params, log_prim_haloprop, modulate_with_cenocc=False,
     # oracle uses the identical expression, so tabulated and predicted
     # statistics are unaffected at the 1e-6 contract.)
     eps = 1e-12 if xp.asarray(log_m).dtype == xp.float64 else 1e-6
-    # exp10/log1p/exp from utils.backend: XLA's own f32 exp/pow/log1p on
-    # TPU carry 5e-6-1e-4 errors that would dominate the <1e-6 contract.
+    # exp10/log1p/exp from utils.backend, the compensated float32 forms
+    # (on an NVIDIA H100, XLA's own f32 exp reaches 1.5e-7 relative and
+    # log1p 2.7e-7 absolute, the same level; see utils.backend).
     ratio = xp.minimum(exp10(-log_m) * exp10(log_m0), 1.0 - eps)
     # (log_m - logM1) FIRST: both operands are ~12-15 but their
     # difference is ~0-3, and close float32 subtractions are exact

@@ -88,7 +88,6 @@ def zu15_log_halo_mass(log_mstar, params):
 def zu15_log_mstar(log_mh, params):
     """log10 f_SHMR(Mh): mean stellar mass at halo mass Mh, by the same
     grid-seeded Newton inversion as :func:`~.leauthaud11.fshmr_log_mstar`."""
-    from ..utils.backend import in_pallas_lowering
     from ..utils.inversion import monotone_inverse
     from .leauthaud11 import (_d_log_mh_d_log_mstar,
                               behroozi10_log_halo_mass)
@@ -97,11 +96,6 @@ def zu15_log_mstar(log_mh, params):
     coeffs = _behroozi_coeff_dict(params, xp)
     fwd = lambda ls: behroozi10_log_halo_mass(ls, coeffs, 1.0, 1.0)  # noqa: E731
     dfwd = lambda ls: _d_log_mh_d_log_mstar(ls, coeffs, 1.0, 1.0)  # noqa: E731
-    if in_pallas_lowering():
-        # Mosaic-safe bisection seed in place of the interp gather (see
-        # models.leauthaud11.fshmr_log_mstar).
-        return monotone_inverse(fwd, log_mh,
-                                bracket=(_GRID_LO, _GRID_HI), dfn=dfwd)
     grid_mstar = xp.linspace(_GRID_LO, _GRID_HI, _GRID_N,
                              dtype=log_mh.dtype)
     return monotone_inverse(fwd, log_mh, grid_mstar, dfn=dfwd)
@@ -210,9 +204,6 @@ class ZuMandelbaum15Model(HodModel):
 
     param_names = tuple(ZU_MANDELBAUM15_PARAMS)
     param_defaults = dict(ZU_MANDELBAUM15_PARAMS)
-    # Fused/bundle-eligible via the Mosaic-safe bisection seed, same as
-    # Leauthaud11 (see utils.inversion.monotone_inverse).
-    supports_fused_engine = True
 
     def __init__(self, threshold=10.5, modulate_with_cenocc=True,
                  prim_haloprop_key="halo_m200m", sec_haloprop_key=None,

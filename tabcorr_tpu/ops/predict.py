@@ -1,4 +1,4 @@
-"""TPU-native prediction kernels.
+"""Batched prediction kernels.
 
 The reference's hot MCMC inner loop (reference: tabcorr/tabcorr.py:580-683)
 is: mean occupation per halo bin -> per-bin galaxy density ``n`` -> packed
@@ -12,9 +12,9 @@ prediction is exactly
 
     xi_k = n^T F_k n / (sum_i n_i)^2
 
-— two dense matmuls and a reduction, no gathers, which is what the MXU
-wants.  Cross mode is a single matmul ``xi = F n / sum(n)``
-(reference: tabcorr/tabcorr.py:648-649).
+— a dense matrix product and a reduction, no gathers.  Cross mode is a
+single matrix product ``xi = F n / sum(n)`` (reference:
+tabcorr/tabcorr.py:648-649).
 
 All functions here are pure, jit/vmap/grad-compatible, and batch-native:
 a leading batch axis on the occupation array broadcasts through.
@@ -160,9 +160,9 @@ def predict_from_occupation(table: TableData, mean_occ):
     ngal = mean_occ * table.n_h
     total = jnp.sum(ngal, axis=-1)
     if table.mode == AUTO:
-        # xi_k = n^T F_k n / (sum n)^2 : MXU contraction + reduction.
-        # HIGHEST keeps the XLA path at full float32 MXU precision (the
-        # default would be a single ~1e-3-relative bf16 pass on TPU).
+        # xi_k = n^T F_k n / (sum n)^2 : matrix product + reduction.
+        # HIGHEST keeps every product at IEEE float32 (the default
+        # would be TF32 on a GPU, ~1e-3 relative).
         t = jnp.einsum("kij,...j->...ki", table.tpcf_dense, ngal,
                        preferred_element_type=ngal.dtype,
                        precision=jax.lax.Precision.HIGHEST)

@@ -9,8 +9,12 @@ single-threaded numpy.  Here prediction scales over a
   over devices.  The tabulation matrices are small (<= a few MB) and are
   replicated, so the hot loop needs zero communication.
 * **tp** ("table parallel"): for very large tabulations, halo bins are
-  sharded over devices and contractions finish with a ``psum`` over ICI
+  sharded over devices and contractions finish with a ``psum``
   (see :mod:`tabcorr_tpu.parallel.shard`).
+
+The mesh follows the algorithm alone, dp then tp: the GPUs of one host
+reach each other all to all over NVLink at one rate, so no device order
+is better than another.
 """
 
 from __future__ import annotations
@@ -25,18 +29,15 @@ TABLE_AXIS = "tp"
 
 def initialize_multihost(coordinator_address=None, num_processes=None,
                          process_id=None):
-    """Initialize JAX's distributed runtime for a multi-host pod slice.
+    """Initialize JAX's distributed runtime for several processes.
 
-    On Cloud TPU pods every argument is auto-detected from the
-    environment, so ``initialize_multihost()`` with no arguments is the
-    normal call; elsewhere pass the coordinator's ``host:port``, the
-    process count and this process's id.  After this,
-    ``jax.devices()`` lists the GLOBAL device set and every mesh built
-    by :func:`make_mesh` spans hosts — dp stays communication-free
-    (batch shards are host-local) while tp contractions ride ICI within
-    a host and DCN across, exactly the layering the sharded predictor's
-    psum expects.  Safe to call more than once (subsequent calls with
-    the same arguments are no-ops).
+    Pass the coordinator's ``host:port``, the process count and this
+    process's id (a plain GPU cluster advertises none of them).  After
+    this, ``jax.devices()`` lists the GLOBAL device set and every mesh
+    built by :func:`make_mesh` spans processes — dp stays
+    communication-free (batch shards are process-local) while the tp
+    contraction's psum crosses them.  Safe to call more than once
+    (subsequent calls with the same arguments are no-ops).
 
     Returns the number of processes in the cluster.
     """

@@ -4,7 +4,7 @@ For tabulations too large to replicate comfortably (many statistics x many
 bins, e.g. stacked multipole tables or the 300-mass-bin cross tabulations of
 the published database), the halo-bin axis of the dense matrix is sharded
 over the ``tp`` mesh axis.  Each device contracts its bin shard and a single
-``psum`` over ICI finishes the quadratic form:
+``psum`` finishes the quadratic form:
 
     auto :  xi_k = psum_d( n_d^T F_k[:, d-shard] n ) / psum_d(sum n_d)^2
     cross:  xi_k = psum_d( F_k[:, d-shard] n_d ) / psum_d(sum n_d)

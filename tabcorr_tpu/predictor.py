@@ -6,10 +6,10 @@ batch-native function
 
     f(params: dict[str, (B,) array]) -> (ngal (B,), xi (B, *tpcf_shape))
 
-that evaluates an entire MCMC ensemble per call.  This is the TPU-native
+that evaluates an entire MCMC ensemble per call.  This is the batched
 replacement for looping the reference's ~1 ms ``predict``
 (reference docs: one evaluation per call, docs/guides/overview.rst:85-92);
-here 10^5+ evaluations ride one kernel launch, and gradients are free.
+here 10^5+ evaluations ride one jitted call, and gradients are free.
 
 For the Interpolator path the whole pipeline — mean occupation per unique
 halo binning, per-grid-node contraction, multi-axis not-a-knot spline — is
@@ -77,8 +77,6 @@ def _pad_table_data(table, n_cen, n_sat):
     different halo binnings share one stacked jitted pipeline (the
     reference's heterogeneous-binning support, interpolator.py:63-70).
     """
-    import numpy as np
-
     from .ops.predict import TableData
 
     n_bins = table.n_h.shape[0]
@@ -192,235 +190,28 @@ def _spline_over_grid(params, keys, xp_dev, a_dev, grid_shape, values,
     return y
 
 
-def _grid_node_weights(params, keys, xp_dev, a_dev, extrapolate=True):
-    """Per-sample node weights of the multi-axis grid spline.
+def _compile(fn, jit, mesh, batch_axis):
+    """jit ``fn``; with a mesh, split its batch axis over ``batch_axis``.
 
-    Each ``spline_eval`` pass is linear in its ordinates, so the whole
-    grid reduction is a weight vector per sample: the axis-k weights are
-    the spline applied to an identity ordinate matrix, and the node
-    weights are their outer product flattened in C (grid) order —
-    ``_spline_over_grid(values) == node_weights @ values`` exactly (up
-    to f32 summation order).  NaN (extrapolate=False outside the grid)
-    appears in every weight of the offending sample, preserving the
-    NaN-outside-grid contract.  Cost is O(B * sum(len(xp_k)^2)) —
-    negligible next to the contraction — and folding these weights into
-    the streamed grid kernel removes its (B, n_nodes, n_xi) HBM
-    intermediate (see ops.fused._make_grid_packed_predictor).
+    Inputs and outputs are batch-sharded and the tables replicated, so
+    each device evaluates its slice of the batch with no communication.
     """
-    import jax
+    if mesh is None:
+        return jax.jit(fn) if jit else fn
+    from jax.sharding import NamedSharding, PartitionSpec
 
-    w = None
-    for key, xp, a in zip(keys, xp_dev, a_dev):
-        eye = jnp.eye(xp.shape[0], dtype=xp.dtype)
-        wk = jax.vmap(
-            lambda x, xp=xp, a=a, eye=eye: spline_eval(
-                x, xp, a, eye, extrapolate=extrapolate))(params[key])
-        w = wk if w is None else (
-            w[:, :, None] * wk[:, None, :]).reshape(w.shape[0], -1)
-    return w
+    sharding = NamedSharding(mesh, PartitionSpec(batch_axis))
 
+    def sharded(params):
+        params = jax.lax.with_sharding_constraint(params, sharding)
+        return jax.lax.with_sharding_constraint(fn(params), sharding)
 
-def _interpolator_fused_predict_fn(interp, model, n_gauss, dtype,
-                                   extrapolate, accuracy="elementwise",
-                                   mesh=None, batch_axis="dp"):
-    """Fused-engine Interpolator path (single shared halo binning).
-
-    All grid nodes' dense matrices stack along the statistic axis, so the
-    whole grid evaluates in ONE Pallas contraction per batch; the grid
-    spline then reduces the per-node outputs.
-    """
-    from .ops.fused import DEFAULT_TILE, make_fused_contraction
-    from .ops.predict import TableData
-
-    if len(interp.unique_gal_type_index) != 1:
-        raise ValueError("engine='fused' requires all Interpolator nodes "
-                         "to share one halo binning.")
-    order = [int(i) for i in interp.param_dict_table["tabcorr_index"]]
-    tables = [interp.tabcorr_list[i].table_data(n_gauss=n_gauss,
-                                                dtype=dtype)
-              for i in order]
-    base = tables[0]
-    n_nodes = len(tables)
-    n_xi = base.tpcf_dense.shape[0]
-    stacked = TableData(
-        tpcf_dense=jnp.concatenate([t.tpcf_dense for t in tables], axis=0),
-        n_h=base.n_h, log_prim_quad=base.log_prim_quad,
-        quad_weight=base.quad_weight, sec_perc=base.sec_perc,
-        mode=base.mode, tpcf_shape=(n_nodes * n_xi,),
-        n_centrals=base.n_centrals,
-        log_prim_quad_lo=base.log_prim_quad_lo)
-
-    # 'scaled' budgets normalize within each node's row block: near a
-    # low-amplitude grid node the interpolated output is that node's
-    # statistic, so its rows must honor the budget relative to its OWN
-    # peak, not the loudest node's.
-    occ_cen, occ_sat = occupation_functions(model)
-    keys = tuple(interp.keys)
-    xp_dev = [jnp.asarray(xp, dtype=dtype) for xp in interp.xp]
-    a_dev = [jnp.asarray(a, dtype=dtype) for a in interp.a]
-    grid_shape = tuple(len(xp) for xp in interp.xp)
-
-    if jnp.dtype(dtype) == jnp.dtype(jnp.float32):
-        # Flagship route: the whole stacked grid — in-kernel occupation
-        # quadrature AND every node's contraction — runs as ONE bundle
-        # kernel per batch tile (no HBM occupation intermediate), then
-        # the grid spline reduces the per-node outputs.  Grids whose
-        # stacked constants exceed the VMEM budget (the published
-        # 'default' 4x4x4 = 64-node wp/xi tables) run the node-STREAMED
-        # variant of the same kernel instead: one node slab resident at
-        # a time, double-buffered HBM->VMEM by the Pallas pipeline
-        # (ops.fused.make_fused_grid_predictor).
-        if _fused_constants_fit_vmem(interp, n_gauss):
-            from .ops.fused import make_fused_bundle_predictor
-            bundle_fn = make_fused_bundle_predictor(
-                [stacked], occ_cen, occ_sat,
-                tuple(model.param_dict.keys()),
-                accuracy=[accuracy], scale_block_rows=[n_xi],
-                mesh=mesh, batch_axis=batch_axis,
-                fiducial_params=dict(model.param_dict))
-
-            def node_fn(params):
-                [(total, xi_nodes)] = bundle_fn(params)
-                batch = xi_nodes.shape[0]
-                return total, xi_nodes.reshape(batch, n_nodes, n_xi)
-        else:
-            from .ops.fused import grid_layout_for, make_fused_grid_predictor
-            # Packed layout (every published grid): fold the grid spline
-            # into the kernel as per-sample node weights — no per-node
-            # HBM intermediate.  Slab fallback keeps the XLA spline.
-            folded = grid_layout_for(stacked) == "packed"
-            node_fn = make_fused_grid_predictor(
-                stacked, n_nodes, occ_cen, occ_sat,
-                tuple(model.param_dict.keys()), accuracy=accuracy,
-                mesh=mesh, batch_axis=batch_axis, fold_spline=folded,
-                fiducial_params=dict(model.param_dict))
-
-            if folded:
-                @jax.jit
-                def predict_batch(params):
-                    params = {k: jnp.asarray(v, dtype=dtype)
-                              for k, v in params.items()}
-                    batch = next(iter(params.values())).shape[0]
-                    nw = _grid_node_weights(params, keys, xp_dev, a_dev,
-                                            extrapolate)
-                    total, xi = node_fn(params, nw)
-                    xi = xi.reshape((batch,) + tuple(base.tpcf_shape))
-                    # ngal is node-independent for a shared binning; for
-                    # IN-GRID samples the reference's grid spline of equal
-                    # values returns the same value, so total passes
-                    # through exactly (no spline rounding).  Out-of-grid
-                    # samples (extrapolate=False -> NaN node weights) must
-                    # poison ngal too, matching the XLA engine, which
-                    # splines ngal over the grid (reference:
-                    # interpolator.py:196-205).
-                    total = jnp.where(jnp.isnan(jnp.sum(nw, axis=-1)),
-                                      jnp.nan, total)
-                    return total, xi
-
-                return predict_batch
-
-        @jax.jit
-        def predict_batch(params):
-            params = {k: jnp.asarray(v, dtype=dtype)
-                      for k, v in params.items()}
-            batch = next(iter(params.values())).shape[0]
-            total, xi_nodes = node_fn(params)
-
-            def spline_one(p, xi_n):
-                return _spline_over_grid(p, keys, xp_dev, a_dev,
-                                         grid_shape, xi_n, extrapolate)
-
-            xi = jax.vmap(spline_one)(params, xi_nodes)
-            xi = xi.reshape((batch,) + tuple(base.tpcf_shape))
-            # ngal is node-independent for a shared binning; for in-grid
-            # samples the reference's grid spline of equal values returns
-            # the same value, so total passes through exactly.
-            # Out-of-grid samples (extrapolate=False -> NaN spline
-            # weights, visible as all-NaN xi rows) poison ngal too,
-            # matching the XLA engine's splined ngal.
-            total = jnp.where(
-                jnp.isnan(jnp.sum(xi.reshape(batch, -1), axis=-1)),
-                jnp.nan, total)
-            return total, xi
-
-        return predict_batch
-
-    if mesh is not None:
-        raise ValueError("mesh requires the float32 fused Interpolator "
-                         "path (the bundle constants are float32).")
-
-    # bfloat16 path: XLA occupation + fused stacked contraction.
-    # One tile value shared by the kernel build and the batch padding
-    # below — a mismatch makes the pallas grid empty (batch // tile = 0)
-    # and returns uninitialized output.
-    batch_tile = DEFAULT_TILE
-    contract = make_fused_contraction(stacked, error_model=accuracy,
-                                      scale_block_rows=n_xi,
-                                      batch_tile=batch_tile)
-
-    @jax.jit
-    def predict_batch(params):
-        any_param = next(iter(params.values()))
-        batch = any_param.shape[0]
-        padded = -(-batch // batch_tile) * batch_tile
-        params_padded = {
-            k: jnp.pad(jnp.asarray(v, dtype=dtype), (0, padded - batch),
-                       constant_values=1.0)
-            for k, v in params.items()}
-        mean_occ = jax.vmap(lambda p: mean_occupation(
-            stacked, occ_cen, occ_sat, p))(params_padded)
-        total, xi_nodes = contract(mean_occ * stacked.n_h)
-        xi_nodes = xi_nodes.reshape(padded, n_nodes, n_xi)
-
-        def spline_one(p, xi_n):
-            return _spline_over_grid(p, keys, xp_dev, a_dev, grid_shape,
-                                     xi_n, extrapolate)
-
-        xi = jax.vmap(spline_one)(params_padded, xi_nodes)
-        xi = xi[:batch].reshape((batch,) + tuple(base.tpcf_shape))
-        # ngal is node-independent for a shared binning; in-grid the
-        # reference's grid spline of equal values returns the same value.
-        # Out-of-grid samples (all-NaN xi rows) poison ngal too, matching
-        # the XLA engine's splined ngal.
-        total = jnp.where(
-            jnp.isnan(jnp.sum(xi.reshape(batch, -1), axis=-1)),
-            jnp.nan, total[:batch])
-        return total, xi
-
-    return predict_batch
-
-
-def _fused_constants_fit_vmem(obj, n_gauss, budget_bytes=64 * 2 ** 20):
-    """Conservative VMEM estimate for the fused engine's kernel constants.
-
-    The resident Pallas kernels keep every dense matrix (plus bf16 pass
-    splits, ~1.5x) in VMEM; a large Interpolator grid (e.g. the
-    'default' config's 4x4x4 = 64 phase-space nodes) stacks n_nodes *
-    n_xi rows and can exceed the chip's ~128 MB.  Beyond
-    ``budget_bytes`` the fused Interpolator path switches to the
-    node-streamed grid kernel (one node slab resident at a time —
-    ops.fused.make_fused_grid_predictor); plain-TabCorr engine='auto'
-    falls back to XLA.
-    """
-    if isinstance(obj, Interpolator):
-        tables = [obj.tabcorr_list[int(i)]
-                  for i in obj.param_dict_table["tabcorr_index"]]
-    else:
-        tables = [obj]
-    total = 0
-    for tab in tables:
-        n_xi, n_bins = int(np.prod(tab.tpcf_shape)), len(tab.gal_type)
-        nb_pad = -(-n_bins // 128) * 128
-        auto = tab.attrs.get("mode", "auto") == "auto"
-        width = n_xi * nb_pad if auto else n_xi
-        total += nb_pad * width * 4
-    return total * 1.5 <= budget_bytes
+    return jax.jit(sharded)
 
 
 def make_predictor(obj, model, n_gauss=10, dtype=jnp.float32,
                    separate_gal_type=False, vectorized=True, jit=True,
-                   engine="auto", extrapolate=False,
-                   accuracy="elementwise", mesh=None, batch_axis="dp"):
+                   extrapolate=False, mesh=None, batch_axis="dp"):
     """Build a batched prediction function for a tabulation or interpolator.
 
     Parameters
@@ -432,7 +223,7 @@ def make_predictor(obj, model, n_gauss=10, dtype=jnp.float32,
     n_gauss : int, optional
         Gauss-Legendre nodes per halo bin. Default is 10.
     dtype : jnp.dtype, optional
-        Device dtype; float32 is the TPU fast path (<~1e-6 relative of the
+        Device dtype; float32 is the fast path (<~1e-6 relative of the
         float64 path), float64 bit-matches the host parity path.
     separate_gal_type : bool, optional
         Return per-galaxy-type dictionaries.
@@ -441,75 +232,23 @@ def make_predictor(obj, model, n_gauss=10, dtype=jnp.float32,
         dicts of scalars.
     jit : bool, optional
         Wrap in ``jax.jit``.
-    engine : str, optional
-        'xla', 'fused' (Pallas VMEM-resident contraction; TabCorr-only,
-        vectorized, no separate_gal_type) or 'auto' (fused on TPU when
-        eligible). Default 'auto'.
     extrapolate : bool, optional
         Interpolator grids only.  False (default, matching the reference's
         out-of-range ValueError, tabcorr/interpolator.py:322-327) returns
         NaN for parameters outside the grid — pair with a log posterior
         that maps non-finite predictions to -inf.  True clamps to the
         edge splines.
-    accuracy : str, optional
-        Fused-engine error contract: 'elementwise' (default; every output
-        element <1e-6 relative, all contraction rows at 6-pass float32) or
-        'scaled' (error budget relative to the statistic's largest
-        element; low-amplitude rows contract at fewer MXU passes — the
-        natural contract for stacked multi-scale statistics).
     mesh : jax.sharding.Mesh, optional
-        Fused-engine Interpolator path only: batch-shard the stacked-grid
-        bundle kernel over the mesh along ``batch_axis`` (grid tables
-        replicated, zero hot-loop communication).  For plain TabCorr
-        objects use :func:`make_multi_predictor` (mesh-aware bundle) or
-        ``parallel.make_sharded_predict`` (dp x tp).
+        Batch-shard the (vectorized, jitted) predictor over the mesh
+        along ``batch_axis``: tables replicated, zero hot-loop
+        communication.  The batch must divide over the axis.  For a
+        table-parallel split see ``parallel.make_sharded_predict``.
 
     Returns
     -------
     callable
         ``f(params) -> (ngal, xi)``.
     """
-    # Pallas/Mosaic has no float64 matmul: the fused engine is only
-    # eligible for the f32/bf16 fast path.
-    fused_eligible = (vectorized and not separate_gal_type and
-                      getattr(model, "supports_fused_engine", True) and
-                      jnp.dtype(dtype) in (jnp.dtype(jnp.float32),
-                                           jnp.dtype(jnp.bfloat16)) and
-                      (isinstance(obj, TabCorr) or
-                       (isinstance(obj, Interpolator) and
-                        len(obj.unique_gal_type_index) == 1)))
-    if engine == "auto":
-        # Interpolator grids are always fused-eligible on TPU: grids too
-        # large for the VMEM-resident bundle run the node-streamed
-        # kernel (see _interpolator_fused_predict_fn).  A single TabCorr
-        # exceeding the budget (no production table does) falls back to
-        # XLA.
-        engine = ("fused" if fused_eligible and
-                  jax.default_backend() == "tpu" and
-                  (isinstance(obj, Interpolator) or
-                   _fused_constants_fit_vmem(obj, n_gauss)) else "xla")
-    if engine == "fused":
-        if not fused_eligible:
-            raise ValueError(
-                "engine='fused' requires vectorized=True, "
-                "separate_gal_type=False, a float32/bfloat16 dtype, a "
-                "TabCorr (or an Interpolator whose nodes share one halo "
-                "binning) and a model whose occupation lowers in Pallas "
-                "(model.supports_fused_engine).")
-        if isinstance(obj, Interpolator):
-            return _interpolator_fused_predict_fn(obj, model, n_gauss,
-                                                  dtype, extrapolate,
-                                                  accuracy, mesh=mesh,
-                                                  batch_axis=batch_axis)
-        if mesh is not None:
-            raise ValueError(
-                "mesh is supported on the fused Interpolator path; for a "
-                "plain TabCorr use make_multi_predictor(..., mesh=...).")
-        from .ops.fused import make_fused_predictor
-        table = obj.table_data(n_gauss=n_gauss, dtype=dtype)
-        return make_fused_predictor(table, *occupation_functions(model),
-                                    error_model=accuracy)
-
     if isinstance(obj, Interpolator):
         one = _interpolator_predict_fn(obj, model, n_gauss, dtype,
                                        separate_gal_type, extrapolate)
@@ -518,80 +257,32 @@ def make_predictor(obj, model, n_gauss=10, dtype=jnp.float32,
                                   separate_gal_type)
     else:
         raise TypeError(f"Cannot build a predictor for {type(obj)}.")
+    if mesh is not None and not (vectorized and jit):
+        raise ValueError("mesh= needs vectorized=True and jit=True.")
 
     fn = jax.vmap(one) if vectorized else one
-    return jax.jit(fn) if jit else fn
+    return _compile(fn, jit, mesh, batch_axis)
 
 
 def make_multi_predictor(objs, model, n_gauss=10, dtype=jnp.float32,
-                         jit=True, engine="auto", accuracy=None,
-                         batch_tile=None, mesh=None, batch_axis="dp",
-                         interpret="auto", fuse_occupation=True):
+                         jit=True, mesh=None, batch_axis="dp"):
     """Joint predictor over several tabulations (e.g. wp + xi_0/2/4 + ds).
 
     Returns ``f(params dict of (B,)) -> list of (ngal, xi)`` evaluating all
     statistics for the same parameter batch in one jitted call — the shape
-    of a full multi-probe MCMC likelihood evaluation.
-
-    ``engine='bundle'`` (the default on TPU when every object is a
-    float32 TabCorr) runs the whole bundle — occupation quadrature and
-    all contractions — in ONE Pallas kernel per batch tile
-    (:func:`~.ops.fused.make_fused_bundle_predictor`), the flagship hot
-    path; 'xla' composes per-table predictors.  ``accuracy`` optionally
-    gives one error contract per table ('elementwise' or 'scaled', see
-    the bundle docstring); it applies to the bundle engine only.
-    ``batch_tile`` sets the bundle kernel's batch tile (default
-    ``ops.fused.DEFAULT_TILE``, fastest measured on v5e for >=10^5-
-    element batches; pass the half-ensemble size for small MCMC
-    ensembles — batches pad up to a tile multiple).  ``interpret``
-    forwards to the bundle kernel ('auto' resolves from the mesh's
-    device platform, or the default backend when unsharded).
-
-    ``mesh`` batch-shards the predictor over a device mesh along
-    ``batch_axis`` (tables replicated, zero hot-loop communication; see
-    the bundle docstring).  Supported by both engines: the bundle wraps
-    its kernel in ``shard_map``; the XLA engine relies on jit sharding
-    propagation from batch-sharded inputs.  ``fuse_occupation`` forwards
-    to the bundle kernel (one VPU occupation pass shared by all tables;
-    see :func:`~.ops.fused.make_fused_bundle_predictor`).
+    of a full multi-probe MCMC likelihood evaluation.  ``objs`` may mix
+    TabCorr and Interpolator objects.  ``mesh`` batch-shards the call as
+    in :func:`make_predictor`.
     """
-    bundle_eligible = (
-        jnp.dtype(dtype) == jnp.dtype(jnp.float32) and
-        getattr(model, "supports_fused_engine", True) and
-        all(isinstance(obj, TabCorr) for obj in objs))
-    if engine == "auto":
-        # Every table's constants share ONE kernel's VMEM: give each
-        # object an equal slice of the budget (each <= budget/n implies
-        # the sum fits).
-        fits = all(_fused_constants_fit_vmem(
-            obj, n_gauss, budget_bytes=64 * 2 ** 20 // len(objs))
-            for obj in objs)
-        engine = ("bundle" if bundle_eligible and fits and
-                  jax.default_backend() == "tpu" else "xla")
-    if engine == "bundle":
-        if not bundle_eligible:
-            raise ValueError(
-                "engine='bundle' requires float32, TabCorr objects and a "
-                "model whose occupation lowers in Pallas "
-                "(model.supports_fused_engine).")
-        from .ops.fused import DEFAULT_TILE, make_fused_bundle_predictor
-        tables = [obj.table_data(n_gauss=n_gauss, dtype=dtype)
-                  for obj in objs]
-        return make_fused_bundle_predictor(
-            tables, *occupation_functions(model),
-            tuple(model.param_dict.keys()),
-            batch_tile=DEFAULT_TILE if batch_tile is None else batch_tile,
-            accuracy=accuracy, mesh=mesh, batch_axis=batch_axis,
-            interpret=interpret, fuse_occupation=fuse_occupation,
-            fiducial_params=dict(model.param_dict))
-
     fns = [make_predictor(obj, model, n_gauss=n_gauss, dtype=dtype,
                           jit=False) for obj in objs]
 
     def predict_all(params):
         return [fn(params) for fn in fns]
 
-    return jax.jit(predict_all) if jit else predict_all
+    if mesh is not None and not jit:
+        raise ValueError("mesh= needs jit=True.")
+    return _compile(predict_all, jit, mesh, batch_axis)
 
 
 def make_occupation_predictor(obj, dtype=jnp.float32, jit=True,
@@ -601,7 +292,7 @@ def make_occupation_predictor(obj, dtype=jnp.float32, jit=True,
     The non-parametric fast path (see ``models.nonparametric``): the
     statistic is an exact quadratic (auto) / linear (cross) form in the
     occupation vector, so prediction skips the occupation trace entirely
-    and is a single batched MXU contraction — jit/vmap/grad-native.
+    and is a single batched contraction — jit/vmap/grad-native.
     The reference exposes this only as an internal hook
     (reference: tabcorr/tabcorr.py:616-621, predict with an ndarray).
 

@@ -18,11 +18,10 @@ from __future__ import annotations
 
 import itertools
 
-import h5py
 import jax.numpy as jnp
 import numpy as np
 
-from .io import ColumnTable, read_attrs
+from .io import ColumnTable, is_group, open_tree, read_attrs
 from .models.protocol import CENTRALS
 from .ops.predict import AUTO, TableData, quadrature_grid
 from .utils.packing import (array_to_symmetric_matrix, packed_index_arrays,
@@ -83,11 +82,12 @@ class TabCorr:
     # ------------------------------------------------------------------
     @classmethod
     def read(cls, fname):
-        """Read a tabulation from an HDF5 file path or open h5py group."""
+        """Read a tabulation from an HDF5 or ``.npz`` path, or an open
+        group."""
         halotab = cls()
 
-        own_handle = not isinstance(fname, h5py.Group)
-        fstream = h5py.File(fname, "r") if own_handle else fname
+        own_handle = not is_group(fname)
+        fstream = open_tree(fname) if own_handle else fname
 
         halotab.attrs = read_attrs(fstream)
         # Stored float32, up-cast on read like the reference (:399).
@@ -108,8 +108,8 @@ class TabCorr:
     def write(self, fname, overwrite=False, max_args_size=1000000,
               matrix_dtype=np.float32):
         """Write in the reference's HDF5 schema (tabcorr/tabcorr.py:418-463)."""
-        own_handle = not isinstance(fname, h5py.Group)
-        fstream = (h5py.File(fname, "w" if overwrite else "w-")
+        own_handle = not is_group(fname)
+        fstream = (open_tree(fname, "w" if overwrite else "w-")
                    if own_handle else fname)
 
         keys = ["tpcf", "mode", "simname", "redshift", "Num_ptcl_requirement",

@@ -1,7 +1,7 @@
 """The tabulation engine: halo binning, mock population, pair counting.
 
 Functional equivalent of the reference's ``TabCorr.tabulate``
-(reference: tabcorr/tabcorr.py:24-372) with a TPU-first compute layout:
+(reference: tabcorr/tabcorr.py:24-372) with a device-first compute layout:
 instead of farming O(n_bins^2 / 2) ragged pair-count tasks to a process
 pool (reference: tabcorr/tabcorr.py:846-922), tracers carry an integer
 (prim-bin x sec-bin x gal-type) label and ONE labeled-histogram sweep on
@@ -198,7 +198,7 @@ class _FastPath:
     def __init__(self, tpcf_name, tpcf_args, tpcf_kwargs,
                  backend="device"):
         self.name = tpcf_name
-        # 'device': the JAX labeled sweep (TPU MXU / CPU scatter);
+        # 'device': the JAX labeled sweep (paircount.auto_strategy);
         # 'native': the C++/OpenMP cell-list counters via ctypes.
         if backend == "native":
             from . import native as native_mod

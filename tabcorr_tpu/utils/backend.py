@@ -26,18 +26,15 @@ def get_namespace(*arrays):
     return jnp
 
 
-# Pallas/Mosaic has no erf lowering; inside a Pallas kernel trace the
-# polynomial implementation below is substituted (see pallas_lowering()).
-# The same implementation also serves the float32 XLA device path: XLA's
-# own f32 erfc carries up to ~5e-6 relative error (~80 ulp) in the
-# Ncen ~ 0.01-0.5 transition region, while this one stays under ~4e-7.
-_PALLAS_LOWERING = False
-
+# The float32 device path evaluates erf/erfc with the polynomial below:
+# XLA's own float32 erfc carries up to ~3.9e-6 relative error on an
+# NVIDIA H100 (2e6 points over [-6, 9] against float64), this one stays
+# under ~5e-7.
 # Degree-8 Chebyshev fit of erfcx(z) / t in s = (t - mid)/half, where
 # t = 2/(2+z), z in [0, 9] (f64 fit rel err 5.4e-8 — below the ~3-ulp
 # float32 evaluation noise; the deg-10 fit this truncates reached
 # 4.7e-9, buying nothing at f32 while costing 2 Clenshaw iterations on
-# the broadcast (batch, nodes) array of the fused kernel).  Two
+# the broadcast (batch, nodes) occupation array).  Two
 # conditioning choices make the float32 evaluation ~3 ulp (vs ~80 ulp
 # for the Horner power-basis fit this replaces):
 # * fitting erfcx/t (range [0.56, 1], ratio < 2) instead of erfcx
@@ -62,15 +59,14 @@ _ERFCX_CHEB = (
 # ----------------------------------------------------------------------
 # Accurate float32 transcendentals.
 #
-# TPU/XLA f32 elementary functions are fast but loose: measured on v5e,
-# exp carries up to ~4.8e-6 relative error (~80 ulp), pow ~5.5e-6, and
-# log1p up to ~1.1e-4 ABSOLUTE error near r = 0.25.  Those errors would
-# dominate the occupation pipeline's <1e-6 contract, so the float32
-# device path uses the compensated implementations below (~2-3 ulp,
-# measured 2.4e-7 for exp over [-81, 0]); all are plain arithmetic +
-# integer bitcasts, so they lower under Pallas/Mosaic and differentiate
-# (the discrete power-of-two scalings are stop_gradient-ed; tangents
-# flow through the continuous factors).
+# The float32 device path uses the compensated implementations below
+# (~2-3 ulp; all plain arithmetic + integer bitcasts, so they
+# differentiate: the discrete power-of-two scalings are stop_gradient-ed
+# and tangents flow through the continuous factors).  Measured on an
+# NVIDIA H100 against float64 (2e6 points each), XLA's own float32 exp
+# reaches 1.5e-7 relative over [-87, 0] and log1p 2.7e-7 absolute over
+# (-1, 4], the same level as these; whether they are still needed is
+# open (see ROADMAP.md).
 # ----------------------------------------------------------------------
 _LN2_HI = 0.693359375                 # 9-bit high part: n * _LN2_HI exact
 _LN2_LO = -2.12194440054690583e-4
@@ -146,8 +142,7 @@ def _log1p_f32(y):
     For |y| small the atanh form 2 atanh(y / (2 + y)) works directly on y
     (no 1 + y rounding).  Otherwise w = 1 + y is range-reduced by exact
     power-of-two scaling into [sqrt2/2, sqrt2) via bitcast exponent
-    extraction, and ln w = k ln2 + 2 atanh((m-1)/(m+1)).  XLA's own f32
-    log1p on TPU carries up to ~1.1e-4 absolute error.
+    extraction, and ln w = k ln2 + 2 atanh((m-1)/(m+1)).
     """
     import jax
     import jax.numpy as jnp
@@ -188,7 +183,7 @@ def _log1p_abs_f32(y):
     For y in (-1, -0.5] the sum w = 1 + y is EXACT (Sterbenz); for
     |y| < 0.5 the w rounding contributes <= 2^-25 / w <= 6e-8 absolute
     to ln w.  Skipping the small-|y| atanh branch saves a divide, a
-    polynomial, and a select on the fused kernel's broadcast array.
+    polynomial, and a select on the broadcast occupation array.
     """
     import jax
     import jax.numpy as jnp
@@ -292,7 +287,7 @@ def _erfc_abs_poly(z, xp):
 
 
 def erf_poly(x):
-    """erf via the erfcx Chebyshev fit (Pallas-lowerable: exp + arithmetic).
+    """erf via the erfcx Chebyshev fit (exp + arithmetic).
 
     Relatively accurate complementary tail: erfc(z) = erfcx(z) exp(-z^2),
     so occupations of deep-tail (Ncen -> 0) halo bins keep relative
@@ -309,40 +304,9 @@ def erfc_poly(x):
     return xp.where(x >= 0, erfc_abs, 2.0 - erfc_abs)
 
 
-class pallas_lowering:
-    """Context manager: route backend.erf through the polynomial form.
-
-    Activate around tracing occupation callables into a Pallas kernel
-    (Mosaic has no erf primitive); models that import
-    ``tabcorr_tpu.utils.backend.erf`` pick it up automatically because the
-    dispatch happens inside the shared function object.
-    """
-
-    def __enter__(self):
-        global _PALLAS_LOWERING
-        self._prev = _PALLAS_LOWERING
-        _PALLAS_LOWERING = True
-        return self
-
-    def __exit__(self, *exc):
-        global _PALLAS_LOWERING
-        _PALLAS_LOWERING = self._prev
-        return False
-
-
-def in_pallas_lowering() -> bool:
-    """Whether a :class:`pallas_lowering` context is active (i.e. the
-    caller is being traced into a Pallas kernel).  Lets shared numerics
-    (e.g. ``utils.inversion.monotone_inverse``) swap gather-based
-    algorithms for Mosaic-lowerable ones."""
-    return _PALLAS_LOWERING
-
-
 def _use_poly(x) -> bool:
-    """Polynomial path: inside Pallas traces (Mosaic has no erf) and for
-    every sub-float64 device dtype (more accurate than XLA's f32 erfc)."""
-    if _PALLAS_LOWERING:
-        return True
+    """Polynomial path for every sub-float64 device dtype (more accurate
+    than XLA's float32 erfc)."""
     import numpy as np_mod
     dtype = getattr(x, "dtype", None)
     return dtype is not None and dtype != np_mod.float64
@@ -375,63 +339,3 @@ def erfc(x):
         return erfc_poly(x)
     from jax.scipy.special import erfc as jax_erfc
     return jax_erfc(x)
-
-
-# atan(t) = t * P(t^2) on t in [0, 1]: degree-10 least-squares fit in
-# t^2 (max abs err 1.3e-9); |z| > 1 range-reduces through
-# atan(z) = pi/2 - atan(1/z).
-_ATAN_COEFFS = (
-    0.9999999997077694, -0.33333325678095815, 0.19999666992207882,
-    -0.14280017959650287, 0.1106046113107278, -0.08822409357032443,
-    0.06772908967768432, -0.04519885751493469, 0.023024818327864804,
-    -0.007568837304734582, 0.0011682004700041915)
-
-_HALF_PI = 1.5707963267948966
-
-
-def _arctan_poly(x, xp):
-    """arctan via the odd polynomial + reciprocal range reduction
-    (Pallas-lowerable: Mosaic has no atan primitive)."""
-    az = xp.abs(x)
-    inv = az > 1.0
-    t = xp.where(inv, 1.0 / xp.maximum(az, 1.0), az)
-    s = t * t
-    p = xp.zeros_like(s)
-    for c in _ATAN_COEFFS[::-1]:
-        p = p * s + c
-    v = t * p
-    v = xp.where(inv, _HALF_PI - v, v)
-    return xp.sign(x) * v
-
-
-def arctan(x):
-    """arctan on the matching backend (polynomial inside Pallas traces)."""
-    if is_numpy(x):
-        return np.arctan(x)
-    import jax.numpy as jnp
-    if _PALLAS_LOWERING:
-        return _arctan_poly(x, jnp)
-    return jnp.arctan(x)
-
-
-def _expm1_poly(x, xp):
-    """expm1 via a 7-term Maclaurin series for |x| < 0.5 and exp(x) - 1
-    beyond (no cancellation there: |exp(x) - 1| >= 0.39).  Truncation
-    < 5e-8 relative at the splice — float32-exact for the Pallas path
-    (Mosaic has no expm1 primitive)."""
-    xs = xp.clip(x, -0.5, 0.5)
-    p = xp.ones_like(xs) / 5040.0
-    for c in (720.0, 120.0, 24.0, 6.0, 2.0, 1.0):
-        p = p * xs + 1.0 / c
-    small = xs * p
-    return xp.where(xp.abs(x) < 0.5, small, xp.exp(x) - 1.0)
-
-
-def expm1(x):
-    """expm1 on the matching backend (polynomial inside Pallas traces)."""
-    if is_numpy(x):
-        return np.expm1(x)
-    import jax.numpy as jnp
-    if _PALLAS_LOWERING:
-        return _expm1_poly(x, jnp)
-    return jnp.expm1(x)

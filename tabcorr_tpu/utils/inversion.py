@@ -11,12 +11,9 @@ Two seeding strategies feed the Newton refinement:
 
 * **interp** — piecewise-linear interpolation of ``fn`` sampled on a
   static grid.  One ``fn`` sweep over the grid plus a searchsorted/
-  gather; the default outside Pallas kernels.
-* **bisect** — a fixed, unrolled bisection bracket shrink.  Uses only
-  ``where``/arithmetic, so it lowers in Mosaic (Pallas TPU kernels have
-  no gather); selected automatically inside
-  :class:`~.backend.pallas_lowering` contexts, which is what makes the
-  SHMR model families eligible for the fused/bundle engines.
+  gather; the default when a grid is given.
+* **bisect** — a fixed, unrolled bisection bracket shrink (``where``/
+  arithmetic only); the default without a grid.
 
 Both seeds land well inside the Newton basin; the refined root and its
 parameter gradients (implicit function theorem through the final Newton
@@ -26,7 +23,7 @@ negligible for interp) agree to float precision.
 
 from __future__ import annotations
 
-from .backend import get_namespace, in_pallas_lowering
+from .backend import get_namespace
 
 
 def monotone_inverse(fn, y, x_grid=None, dfn=None, newton_steps=3,
@@ -66,9 +63,8 @@ def monotone_inverse(fn, y, x_grid=None, dfn=None, newton_steps=3,
         typical few-dex bracket below 1e-3 of its width, which three
         Newton steps converge past float64.
     seed : {'auto', 'interp', 'bisect'}, optional
-        Seeding strategy.  'auto' uses interp except inside a
-        :class:`~.backend.pallas_lowering` context (Mosaic cannot lower
-        the interp gather), where it switches to bisect.
+        Seeding strategy.  'auto' uses interp when ``x_grid`` is given
+        and bisect otherwise.
 
     Returns
     -------
@@ -77,8 +73,7 @@ def monotone_inverse(fn, y, x_grid=None, dfn=None, newton_steps=3,
     """
     xp = get_namespace(y) if x_grid is None else get_namespace(y, x_grid)
     if seed == "auto":
-        seed = ("bisect" if in_pallas_lowering() or x_grid is None
-                else "interp")
+        seed = "bisect" if x_grid is None else "interp"
     if seed == "interp":
         if x_grid is None:
             raise ValueError("seed='interp' requires x_grid.")

@@ -6,10 +6,10 @@ tabcorr/tabcorr.py:770-806).  Element ``p = i*(i+1)/2 + j`` of the packed
 array corresponds to matrix entry ``(i, j)`` with ``j <= i``.
 
 We keep the same on-disk packing for format compatibility but *unpack* to the
-dense symmetric matrix at load time: on TPU the contraction
+dense symmetric matrix at load time: the contraction
 ``sum_p M_p * (2 - delta_ij) * n_i * n_j`` is mathematically identical to the
-dense quadratic form ``n^T F n`` which maps onto the MXU as plain matmuls,
-with no gather/scatter in the hot path.
+dense quadratic form ``n^T F n``, which runs as plain matrix products with
+no gather/scatter in the hot path.
 """
 
 from __future__ import annotations

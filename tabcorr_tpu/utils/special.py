@@ -46,113 +46,12 @@ _X_FLOOR = 1e-35
 
 
 def _gammaincc_unreg(a, x, xp):
-    """Gamma(a, x) = Q(a, x) * Gamma(a) for a > 0.
-
-    Inside a Pallas trace the scipy/XLA ``gammaincc`` (lax.igammac, no
-    Mosaic lowering) is swapped for the branchless series/continued-
-    fraction hybrid below — same dispatch pattern as backend.erf.
-    """
-    if xp is not np:
-        from .backend import in_pallas_lowering
-        if in_pallas_lowering():
-            return _gamma_upper_lowerable(a, x, xp)
+    """Gamma(a, x) = Q(a, x) * Gamma(a) for a > 0."""
     if xp is np:
         from scipy.special import gammaincc, gammaln
     else:
         from jax.scipy.special import gammaincc, gammaln
     return gammaincc(a, x) * xp.exp(gammaln(a))
-
-
-# (Gamma(1 + z) - 1) / z on z in [0, 1]: degree-12 least-squares fit
-# against mpmath (max abs err 6e-10; leading coefficient is -euler_gamma
-# to 9 digits).  Dividing out the z zero keeps the Temme bracket below
-# cancellation-free as z -> 0.
-_G1_COEFFS = (
-    -0.5772156643037297, 0.9890558815380694, -0.9074737274559522,
-    0.9816180916637941, -0.9807524315455647, 0.9844490957280668,
-    -0.9553739920034312, 0.8651290094012174, -0.6822383126208814,
-    0.43064844593534757, -0.19690600270488187, 0.05665806466967681,
-    -0.007598458719435523)
-
-# Fixed iteration counts (Mosaic needs static control flow).  Verified
-# against mpmath over a in [3e-3, 3] x x in [1e-35, 1e3]: float32 worst
-# relative error 4.5e-6 (3.9e-6 for a <= 1.5, the whole physical
-# cacciato09 range), float64 9e-9; see tests/test_models.py.
-_N_SERIES = 22
-_N_CF = 26
-
-
-def _gamma_upper_lowerable(a, x, xp):
-    """Branchless Gamma(a, x) for a in (0, ~3.5], x > 0 — Mosaic-safe.
-
-    Series half (x < a + 1): reduce a by 0-2 to a_r in (0, 1], evaluate
-    the cancellation-free Temme form
-
-        Gamma(a_r, x) = (Gamma(a_r + 1) - x^a_r) / a_r
-                        - x^a_r * sum_{n>=1} (-x)^n / (n! (a_r + n))
-
-    with the bracket computed as a_r * g1(a_r) - expm1(a_r ln x)
-    (g1 = (Gamma(1+z) - 1)/z, the fit above — each term is O(a_r), so
-    dividing by a_r never amplifies rounding), then recur UP with the
-    all-positive Gamma(a+1, x) = a Gamma(a, x) + x^a e^-x.  The upward
-    recurrence is the stable direction (every term positive), unlike
-    the caller's single DOWNWARD step for a <= 0 whose a = 0
-    cancellation the caller's blend handles.
-
-    Continued-fraction half (x >= a + 1): modified Lentz for the
-    standard CF of e^x x^-a Gamma(a, x), fixed ``_N_CF`` iterations
-    with tiny-clamped denominators (converges geometrically for
-    x >= a + 1 >= 1).
-
-    Everything is exp/log/where arithmetic with static loop counts —
-    no gathers, no data-dependent control flow — so it lowers under
-    Mosaic and keeps cacciato09 bundle-eligible.  Forward-accurate
-    (see the constants above); gradient flows through the truncated
-    arithmetic (adequate for diagnostics, but differentiable pipelines
-    run the XLA path with exact ``igamma_grad_a``).
-    """
-    one = 1.0
-    # --- series half (x < a + 1) --------------------------------------
-    xs = xp.minimum(x, a + 1.0)
-    lnx = xp.log(xs)
-    k1 = a > 1.0
-    k2 = a > 2.0
-    a_r = a - k1.astype(a.dtype) - k2.astype(a.dtype)
-    u = a_r * lnx
-    from .backend import expm1
-    g1 = xp.zeros_like(a_r)
-    for c in _G1_COEFFS[::-1]:
-        g1 = g1 * a_r + c
-    bracket = a_r * g1 - expm1(u)
-    term = xp.ones_like(xs)
-    tail = xp.zeros_like(xs)
-    for n in range(1, _N_SERIES):
-        term = term * (-xs) / n
-        tail = tail + term / (a_r + n)
-    xar = xp.exp(u)
-    g = bracket / a_r - xar * tail
-    emx = xp.exp(-xs)
-    g = xp.where(k1, a_r * g + xar * emx, g)
-    a_r1 = xp.where(k1, a_r + 1.0, a_r)
-    g_series = xp.where(k2, a_r1 * g + xp.exp(a_r1 * lnx) * emx, g)
-    # --- continued-fraction half (x >= a + 1) -------------------------
-    xc = xp.maximum(x, a + 1.0)
-    tiny = 1e-30
-    b = xc + 1.0 - a
-    big = xp.full_like(xc, one / tiny)
-    d = one / xp.where(xp.abs(b) < tiny, tiny, b)
-    c_l = big
-    h = d
-    for i in range(1, _N_CF):
-        an = -i * (i - a)
-        b = b + 2.0
-        d = b + an * d
-        d = one / xp.where(xp.abs(d) < tiny, tiny, d)
-        c_l = b + an / c_l
-        c_l = xp.where(xp.abs(c_l) < tiny, tiny, c_l)
-        h = h * d * c_l
-    g_cf = xp.exp(a * xp.log(xc) - xc) * h
-    return xp.where(x < a + 1.0, g_series, g_cf)
 
 
 def upper_incomplete_gamma(a, x):

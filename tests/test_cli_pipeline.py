@@ -219,21 +219,6 @@ def test_full_ds_pipeline_and_density_crosscheck(tmp_path, monkeypatch):
 
 
 @pytest.mark.slow
-def test_tune_bundle_quick_smoke(capsys):
-    # The autotune utility must run every knob combination end-to-end and
-    # verify the knobs leave results bit-identical (it asserts internally).
-    sys.path.insert(0, str(Path(__file__).parents[1] / "scripts"))
-    import tune_bundle
-
-    tune_bundle.main(["--quick"])
-    out = capsys.readouterr().out.strip().splitlines()
-    import json
-    best = json.loads(out[-1])["best"]
-    assert {"fuse_occupation", "sub_tiles", "batch_tile",
-            "rate"} <= set(best)
-
-
-@pytest.mark.slow
 def test_full_xi_r_pipeline(tmp_path, monkeypatch):
     # Real-space xi(r) pipeline (a superset of the reference's CLI
     # choices): velocity-bias axes are pruned (they cannot move a

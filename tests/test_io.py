@@ -1,7 +1,13 @@
-"""HDF5 round-trip and schema-compatibility tests."""
+"""HDF5 round-trip, schema-compatibility and .npz-copy tests."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import h5py
 import numpy as np
+import pytest
 
 import tabcorr_tpu as tt
 from tabcorr_tpu.io import ColumnTable
@@ -96,3 +102,66 @@ def test_column_table_ops():
     assert table["a"][0] == 1
     table.remove_column("b")
     assert table.colnames == ["a"]
+
+
+REPO = Path(__file__).absolute().parent.parent
+NPZ_FIXTURES = (
+    "tests/data/examples/bolplanck_wp",
+    "tests/data/examples/synthetic_xi_ell",
+    "tests/data/AbacusSummit/base_c000_ph000/0p50/ds_efficient",
+)
+
+
+@pytest.mark.parametrize("stem", NPZ_FIXTURES)
+def test_npz_copy_matches_hdf5(stem):
+    # The committed .npz copies (scripts/make_npz_fixtures.py) read back
+    # to the same objects as their HDF5 originals.
+    reader = (tt.Interpolator.read if "AbacusSummit" in stem
+              else tt.TabCorr.read)
+    a = reader(REPO / f"{stem}.hdf5")
+    b = reader(REPO / f"{stem}.npz")
+    if isinstance(a, tt.Interpolator):
+        assert a.keys == b.keys
+        for col in a.param_dict_table.colnames:
+            np.testing.assert_array_equal(a.param_dict_table[col],
+                                          b.param_dict_table[col])
+        pairs = zip(a.tabcorr_list, b.tabcorr_list)
+    else:
+        pairs = [(a, b)]
+    for x, y in pairs:
+        _assert_tabcorr_equal(x, y)
+        for u, v in zip(x.tpcf_args, y.tpcf_args):
+            np.testing.assert_array_equal(u, v)
+        assert x.tpcf_kwargs.keys() == y.tpcf_kwargs.keys()
+
+
+def test_npz_tree_is_read_only(tmp_path):
+    from tabcorr_tpu.io import open_tree
+    with pytest.raises(ValueError):
+        open_tree(tmp_path / "x.npz", "w")
+
+
+def test_database_read_prefers_npz(monkeypatch):
+    seen = []
+    monkeypatch.setattr(tt.Interpolator, "read",
+                        classmethod(lambda cls, path: seen.append(path)))
+    tt.database.read("AbacusSummit", 0.5, "ds", tab_config="efficient")
+    assert seen[0].suffix == ".npz"
+
+
+def test_package_reads_npz_without_h5py():
+    # h5py is imported only when an HDF5 file is opened.
+    code = (
+        "import sys; sys.modules['h5py'] = None\n"
+        "import jax; jax.config.update('jax_platforms', 'cpu')\n"
+        "import tabcorr_tpu as tt\n"
+        "tab = tt.TabCorr.read(sys.argv[1])\n"
+        "assert tab.tpcf_matrix.shape == (19, 1830), tab.tpcf_matrix.shape\n"
+        "print('ok')\n")
+    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
+    out = subprocess.run(
+        [sys.executable, "-c", code,
+         str(REPO / "tests/data/examples/bolplanck_wp.npz")],
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

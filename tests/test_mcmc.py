@@ -248,7 +248,7 @@ def test_batched_logpost_matches_sum_of_unbatched(wp_tabcorr, bol_model):
     from tabcorr_tpu.predictor import make_multi_predictor
 
     predict_one = make_predictor(wp_tabcorr, bol_model, dtype=jnp.float64,
-                                 vectorized=False, jit=False, engine="xla")
+                                 vectorized=False, jit=False)
     base = {k: jnp.float64(v) for k, v in bol_model.param_dict.items()}
     ngal_true, xi_true = predict_one(base)
     data = np.asarray(xi_true).ravel()
@@ -259,7 +259,7 @@ def test_batched_logpost_matches_sum_of_unbatched(wp_tabcorr, bol_model):
                                    ngal_data=float(ngal_true) * 1.1,
                                    ngal_sigma=float(ngal_true) * 0.2)
     predict_all = make_multi_predictor([wp_tabcorr, wp_tabcorr], bol_model,
-                                       dtype=jnp.float64, engine="xla",
+                                       dtype=jnp.float64,
                                        jit=False)
     lp_batched = make_gaussian_logpost_batched(
         predict_all, names, base, [data, data], [inv_cov, inv_cov],
@@ -364,10 +364,8 @@ def test_diagnostics_on_ensemble_chain():
 
 
 def test_vectorized_ensemble_with_leauthaud11(wp_tabcorr):
-    # The batched MCMC hot path with an SHMR model: engine='auto' now
-    # routes through the Pallas bundle (the bisection-seeded inversion
-    # lowers in-kernel), so the vectorized ensemble rides the flagship
-    # kernel; its log-posterior must match the XLA engine's at the
+    # The batched MCMC hot path with an SHMR model: the float32 joint
+    # predictor's log-posterior must match the float64 one's at the
     # float32 contract.
     import jax
     from tabcorr_tpu.mcmc import (make_gaussian_logpost_batched,
@@ -376,8 +374,9 @@ def test_vectorized_ensemble_with_leauthaud11(wp_tabcorr):
 
     model = tt.Leauthaud11Model(threshold=10.5,
                                 redshift=wp_tabcorr.attrs["redshift"])
-    predict_all = make_multi_predictor([wp_tabcorr], model, engine="auto")
-    predict_xla = make_multi_predictor([wp_tabcorr], model, engine="xla")
+    predict_all = make_multi_predictor([wp_tabcorr], model)
+    predict_xla = make_multi_predictor([wp_tabcorr], model,
+                                       dtype=jnp.float64)
     base = {k: float(v) for k, v in model.param_dict.items()}
     ngal0, wp0 = wp_tabcorr.predict(model, check_consistency=False)
     inv_cov = np.diag(1.0 / (0.05 * np.asarray(wp0)) ** 2)
@@ -398,9 +397,10 @@ def test_vectorized_ensemble_with_leauthaud11(wp_tabcorr):
         base["smhm_m1_0"] + 0.02 * rng.normal(size=n_walkers),
         base["scatter_model_param1"] + 0.01 * rng.normal(size=n_walkers)])
     lp_auto = np.asarray(log_prob(jnp.asarray(walkers0, jnp.float32)))
-    lp_xla = np.asarray(log_prob_xla(jnp.asarray(walkers0, jnp.float32)))
-    # chi^2-scale agreement: the bundle's f32 prediction error enters
-    # the quadratic form against a 5%-relative covariance.
+    lp_xla = np.asarray(log_prob_xla(jnp.asarray(
+        np.asarray(walkers0, np.float32), jnp.float64)))
+    # chi^2-scale agreement: the f32 prediction error enters the
+    # quadratic form against a 5%-relative covariance.
     np.testing.assert_allclose(lp_auto, lp_xla, rtol=1e-3, atol=2e-3)
     chain, lp, accept = run_ensemble(jax.random.PRNGKey(3), log_prob,
                                      walkers0, n_steps=10,

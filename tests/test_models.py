@@ -185,7 +185,7 @@ def test_functional_model_predicts(request):
 
 
 def test_erf_erfc_poly_accuracy():
-    # The Pallas-lowerable polynomial erf/erfc (utils.backend) against
+    # The polynomial erf/erfc (utils.backend) against
     # scipy: absolute accuracy everywhere, RELATIVE accuracy on the
     # complementary tail (what deep-tail halo occupations need).
     from scipy.special import erf as erf_sp, erfc as erfc_sp
@@ -202,17 +202,22 @@ def test_erf_erfc_poly_accuracy():
     assert rel.max() < 1e-7
 
 
-def test_pallas_lowering_context_switches_erf():
+def test_float32_device_erf_uses_polynomial():
+    # Sub-float64 device arrays take the polynomial erf/erfc (XLA's own
+    # float32 erfc is ~4e-6 relative); float64 device arrays take XLA's
+    # and numpy inputs keep scipy.
     import jax.numpy as jnp
 
     from tabcorr_tpu.utils import backend
 
-    x = jnp.linspace(-3, 3, 64)
-    plain = np.asarray(backend.erf(x))
-    with backend.pallas_lowering():
-        poly = np.asarray(backend.erf(x))
-    np.testing.assert_allclose(poly, plain, atol=1e-6)
-    # numpy inputs keep scipy regardless.
+    x = jnp.linspace(-3, 3, 64, dtype=jnp.float32)
+    np.testing.assert_array_equal(np.asarray(backend.erf(x)),
+                                  np.asarray(backend.erf_poly(x)))
+    np.testing.assert_array_equal(np.asarray(backend.erfc(x)),
+                                  np.asarray(backend.erfc_poly(x)))
+    x64 = jnp.linspace(-3, 3, 64, dtype=jnp.float64)
+    np.testing.assert_allclose(np.asarray(backend.erf(x64)),
+                               np.asarray(backend.erf_poly(x64)), atol=1e-6)
     assert backend.erf(0.5) == backend.erf(np.float64(0.5))
 
 
@@ -408,7 +413,7 @@ def test_leauthaud11_vectorized_predictor_matches_host(wp_tabcorr):
     model = tt.Leauthaud11Model(threshold=10.5,
                                 redshift=wp_tabcorr.attrs["redshift"])
     ngal_h, xi_h = wp_tabcorr.predict(model, check_consistency=False)
-    pred = wp_tabcorr.make_predictor(model, vectorized=True, engine="xla",
+    pred = wp_tabcorr.make_predictor(model, vectorized=True,
                                      dtype=jnp.float64)
     batch = {k: np.full(3, v) for k, v in model.param_dict.items()}
     batch["smhm_m1_0"][1] = 12.5
@@ -418,30 +423,16 @@ def test_leauthaud11_vectorized_predictor_matches_host(wp_tabcorr):
     assert float(ngal[1]) != float(ngal[0])
 
 
-def test_leauthaud11_fused_engine_matches_xla(wp_tabcorr):
-    # The SHMR inversion swaps its interp seed for a Mosaic-safe
-    # bisection under pallas_lowering, so the fused engine is eligible
-    # and must match the XLA engine at the float32 contract.
+def test_leauthaud11_float32_predictor_matches_float64(wp_tabcorr):
+    # The float32 device path through the grid-seeded SHMR inversion
+    # must match the float64 device path at the float32 contract.
     import jax.numpy as jnp
     model = tt.Leauthaud11Model(threshold=10.5,
                                 redshift=wp_tabcorr.attrs["redshift"])
-    assert model.supports_fused_engine
-    import tabcorr_tpu.ops.fused as fused_mod
-    make = fused_mod.make_fused_contraction
-
-    def interpreted(table, **kw):
-        kw["interpret"] = True
-        return make(table, **kw)
-
-    fused_mod.make_fused_contraction = interpreted
-    try:
-        pred_f = wp_tabcorr.make_predictor(model, vectorized=True,
-                                           engine="fused",
-                                           dtype=jnp.float32)
-    finally:
-        fused_mod.make_fused_contraction = make
+    pred_f = wp_tabcorr.make_predictor(model, vectorized=True,
+                                       dtype=jnp.float32)
     pred_x = wp_tabcorr.make_predictor(model, vectorized=True,
-                                       engine="xla", dtype=jnp.float64)
+                                       dtype=jnp.float64)
     batch32 = {k: np.full(2, v, dtype=np.float32)
                for k, v in model.param_dict.items()}
     batch32["smhm_m1_0"][1] = 12.5
@@ -455,35 +446,37 @@ def test_leauthaud11_fused_engine_matches_xla(wp_tabcorr):
 
 
 def test_shmr_bisection_seed_matches_interp_and_is_gather_free():
-    # The pallas_lowering context switches monotone_inverse to the
-    # bisection seed: same roots as the interp seed to float precision,
-    # and the traced computation contains NO gather primitives (the
-    # Mosaic lowering constraint the switch exists for).
+    # monotone_inverse's two seeds land on the same SHMR root to float
+    # precision, and the bisection seed traces no gather.
     import jax
     import jax.numpy as jnp
-    from tabcorr_tpu.models import fshmr_log_mstar, zu15_log_mstar
-    from tabcorr_tpu.models.leauthaud11 import LEAUTHAUD11_PARAMS
-    from tabcorr_tpu.models.zu_mandelbaum15 import ZU_MANDELBAUM15_PARAMS
-    from tabcorr_tpu.utils.backend import pallas_lowering
+    from tabcorr_tpu.models.leauthaud11 import (
+        _GRID_HI, _GRID_LO, _GRID_N, LEAUTHAUD11_PARAMS,
+        _d_log_mh_d_log_mstar, behroozi10_log_halo_mass)
+    from tabcorr_tpu.utils.inversion import monotone_inverse
+
+    params = {k: jnp.asarray(v) for k, v in LEAUTHAUD11_PARAMS.items()}
+
+    def fwd(ls):
+        return behroozi10_log_halo_mass(ls, params, 1.0 / 1.5, 0.72)
+
+    def dfwd(ls):
+        return _d_log_mh_d_log_mstar(ls, params, 1.0 / 1.5, 0.72)
 
     log_mh = jnp.linspace(10.5, 15.5, 64)
-    for fn, params in ((lambda l: fshmr_log_mstar(
-                            l, {k: jnp.asarray(v) for k, v in
-                                LEAUTHAUD11_PARAMS.items()}, 1.0 / 1.5),
-                        None),
-                       (lambda l: zu15_log_mstar(
-                            l, {k: jnp.asarray(v) for k, v in
-                                ZU_MANDELBAUM15_PARAMS.items()}),
-                        None)):
-        want = fn(log_mh)
-        with pallas_lowering():
-            got = fn(log_mh)
-            jaxpr = jax.make_jaxpr(fn)(log_mh)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   rtol=0, atol=1e-10)
-        prims = {eqn.primitive.name for eqn in jaxpr.eqns}
-        assert "gather" not in prims and "dynamic_slice" not in prims, (
-            sorted(prims))
+    grid = jnp.linspace(_GRID_LO, _GRID_HI, _GRID_N)
+    want = monotone_inverse(fwd, log_mh, grid, dfn=dfwd, seed="interp")
+
+    def bisect(l):
+        return monotone_inverse(fwd, l, dfn=dfwd,
+                                bracket=(_GRID_LO, _GRID_HI))
+
+    np.testing.assert_allclose(np.asarray(bisect(log_mh)),
+                               np.asarray(want), rtol=0, atol=1e-10)
+    prims = {eqn.primitive.name
+             for eqn in jax.make_jaxpr(bisect)(log_mh).eqns}
+    assert "gather" not in prims and "dynamic_slice" not in prims, (
+        sorted(prims))
 
 
 def test_assembias_leauthaud11_mean_preservation_and_baseline():
@@ -530,7 +523,7 @@ def test_assembias_branch_consistent_across_dtypes(wp_tabcorr):
         threshold=-18, redshift=wp_tabcorr.attrs["redshift"])
     model.param_dict["mean_occupation_centrals_assembias_param1"] = 0.5
     ngal_h, _ = wp_tabcorr.predict(model, check_consistency=False)
-    pred = wp_tabcorr.make_predictor(model, vectorized=True, engine="xla",
+    pred = wp_tabcorr.make_predictor(model, vectorized=True,
                                      dtype=jnp.float32)
     batch = {k: np.full(1, v, dtype=np.float32)
              for k, v in model.param_dict.items()}
@@ -589,8 +582,7 @@ def test_leauthaud11_batched_interpolator_matches_host(ds_interpolator):
     model.param_dict["log_eta"] = 0.05
     ngal_h, ds_h = ds_interpolator.predict(model, check_consistency=False)
 
-    pred = make_predictor(ds_interpolator, model, dtype=jnp.float64,
-                          engine="xla")
+    pred = make_predictor(ds_interpolator, model, dtype=jnp.float64)
     params = params_batch(model, {"log_eta": np.array([0.05, 0.15])},
                           (2,), dtype=jnp.float64)
     ngal, ds = pred(params)
@@ -714,8 +706,7 @@ def test_zu15_vectorized_predictor_matches_host(wp_tabcorr):
     model = tt.ZuMandelbaum15Model(threshold=10.5,
                                    prim_haloprop_key="halo_mvir")
     ngal_h, xi_h = wp_tabcorr.predict(model, check_consistency=False)
-    assert model.supports_fused_engine
-    pred = wp_tabcorr.make_predictor(model, vectorized=True, engine="xla",
+    pred = wp_tabcorr.make_predictor(model, vectorized=True,
                                      dtype=jnp.float64)
     batch = {k: np.full(3, v) for k, v in model.param_dict.items()}
     batch["smhm_m1"][1] = 10.0 ** 12.5
@@ -743,23 +734,21 @@ def test_assembias_zu15_mean_preservation():
         assert np.any(np.abs(hi - lo) > 1e-6)
 
 
-def test_shmr_models_through_bundle_engine(wp_tabcorr):
-    # The bundle kernel traces the occupation IN-kernel under
-    # pallas_lowering: the bisection-seeded SHMR inversion must
-    # reproduce the XLA engine at the float32 contract for both SHMR
-    # families (leauthaud11 and zu_mandelbaum15).
+def test_shmr_models_float32_multi_predictor_matches_float64(wp_tabcorr):
+    # Both SHMR families (leauthaud11 and zu_mandelbaum15) through the
+    # joint predictor: float32 against float64 at the float32 contract.
     import jax.numpy as jnp
     from tabcorr_tpu.predictor import make_multi_predictor, params_batch
     for model in (tt.Leauthaud11Model(threshold=10.5,
                                       redshift=wp_tabcorr.attrs["redshift"]),
                   tt.ZuMandelbaum15Model(threshold=10.5,
                                          prim_haloprop_key="halo_mvir")):
-        f_b = make_multi_predictor([wp_tabcorr], model, engine="bundle",
-                                   batch_tile=8)
-        f_x = make_multi_predictor([wp_tabcorr], model, engine="xla")
+        f_b = make_multi_predictor([wp_tabcorr], model)
+        f_x = make_multi_predictor([wp_tabcorr], model, dtype=jnp.float64)
         params = params_batch(model, {}, (8,), dtype=jnp.float32)
         [(ng_b, xi_b)] = f_b(params)
-        [(ng_x, xi_x)] = f_x(params)
+        [(ng_x, xi_x)] = f_x({k: jnp.asarray(v, jnp.float64)
+                              for k, v in params.items()})
         np.testing.assert_allclose(np.asarray(ng_b), np.asarray(ng_x),
                                    rtol=2e-5)
         np.testing.assert_allclose(
@@ -943,7 +932,7 @@ def test_cacciato09_vectorized_predictor_matches_host(wp_tabcorr):
     model = tt.Cacciato09Model(threshold=9.5,
                                prim_haloprop_key="halo_mvir")
     ngal_h, xi_h = wp_tabcorr.predict(model, check_consistency=False)
-    pred = wp_tabcorr.make_predictor(model, vectorized=True, engine="xla",
+    pred = wp_tabcorr.make_predictor(model, vectorized=True,
                                      dtype=jnp.float64)
     batch = {k: np.full(3, v) for k, v in model.param_dict.items()}
     batch["log_M_1"][1] = 11.4
@@ -953,92 +942,30 @@ def test_cacciato09_vectorized_predictor_matches_host(wp_tabcorr):
     assert float(ngal[1]) != float(ngal[0])
 
 
-def test_cacciato09_through_bundle_engine(wp_tabcorr):
-    # Under pallas_lowering the incomplete gamma swaps to the branchless
-    # Temme-series / continued-fraction hybrid and arctan to its odd
-    # polynomial, making the CLF family bundle-eligible; the traced
-    # kernel occupation must be gather-free and the interpret-mode
-    # bundle must match the XLA engine at the family's float32 contract
-    # (looser than zheng07's in the satellite cutoff region — see
+def test_cacciato09_float32_multi_predictor_matches_float64(wp_tabcorr):
+    # The CLF family through the joint predictor: float32 against
+    # float64 at the family's float32 contract (looser than zheng07's
+    # in the satellite cutoff region — see
     # test_cacciato09_float32_device_path_accuracy).
-    import jax
     import jax.numpy as jnp
-    from tabcorr_tpu.predictor import (make_multi_predictor,
-                                       occupation_functions, params_batch)
-    from tabcorr_tpu.utils.backend import pallas_lowering
+    from tabcorr_tpu.predictor import make_multi_predictor, params_batch
 
     model = tt.Cacciato09Model(threshold=9.5,
                                prim_haloprop_key="halo_mvir")
-    assert model.supports_fused_engine
-
-    occ_c, occ_s = occupation_functions(model)
-    logm = jnp.linspace(11.0, 15.0, 32, dtype=jnp.float32)
-    sec = jnp.full_like(logm, 0.5)
-    p32 = {k: jnp.asarray(v, dtype=jnp.float32)
-           for k, v in model.param_dict.items()}
-    with pallas_lowering():
-        jaxpr = jax.make_jaxpr(lambda p: occ_s(p, logm, sec))(p32)
-    prims = {eqn.primitive.name for eqn in jaxpr.eqns}
-    for banned in ("gather", "dynamic_slice", "igammac", "atan", "expm1"):
-        assert banned not in prims, (banned, sorted(prims))
-
-    f_b = make_multi_predictor([wp_tabcorr], model, engine="bundle",
-                               batch_tile=8)
-    f_x = make_multi_predictor([wp_tabcorr], model, engine="xla")
+    f_b = make_multi_predictor([wp_tabcorr], model)
+    f_x = make_multi_predictor([wp_tabcorr], model, dtype=jnp.float64)
     params = params_batch(
         model, {"log_M_1": model.param_dict["log_M_1"] +
                 0.1 * np.random.default_rng(0).normal(size=8)},
         (8,), dtype=jnp.float32)
     [(ng_b, xi_b)] = f_b(params)
-    [(ng_x, xi_x)] = f_x(params)
+    [(ng_x, xi_x)] = f_x({k: jnp.asarray(v, jnp.float64)
+                          for k, v in params.items()})
     np.testing.assert_allclose(np.asarray(ng_b), np.asarray(ng_x),
                                rtol=5e-4)
     np.testing.assert_allclose(
         np.asarray(xi_b), np.asarray(xi_x), rtol=5e-4,
         atol=1e-5 * float(np.max(np.abs(np.asarray(xi_x)))))
-
-
-def test_lowerable_gamma_matches_mpmath():
-    # The Mosaic-safe hybrid vs mpmath over the full (a, x) domain the
-    # CLF family reaches (VERDICT r3 #5): float64 < 1e-7 relative,
-    # float32 < 1e-5, and d/da through the truncated arithmetic agrees
-    # with high-precision finite differences.
-    import jax
-    import jax.numpy as jnp
-    from tabcorr_tpu.utils.special import _gamma_upper_lowerable
-    mpmath = pytest.importorskip("mpmath")
-
-    rng = np.random.default_rng(0)
-    aa = np.concatenate([rng.uniform(3e-3, 3.0, 40),
-                         [3e-3, 0.5, 1.0, 1.00001, 2.0, 2.00001, 3.0]])
-    xx = np.concatenate([10.0 ** rng.uniform(-25, 2.0, 40),
-                         [1e-35, 0.5, 1.0, 3.9, 50.0]])
-    for dtype, tol, floor in ((jnp.float64, 1e-7, 1e-280),
-                              (jnp.float32, 1e-5, 1e-30)):
-        a_g, x_g = np.meshgrid(aa, xx)
-        got = np.asarray(_gamma_upper_lowerable(
-            jnp.asarray(a_g.ravel(), dtype),
-            jnp.asarray(x_g.ravel(), dtype), jnp), np.float64)
-        worst = 0.0
-        for g, a, x in zip(got, a_g.ravel(), x_g.ravel()):
-            want = float(mpmath.gammainc(float(np.asarray(a, dtype)),
-                                         float(np.asarray(x, dtype)),
-                                         mpmath.inf))
-            if abs(want) < floor or not np.isfinite(want):
-                continue
-            worst = max(worst, abs(g - want) / abs(want))
-        assert worst < tol, (dtype, worst)
-
-    # d/da: grad through the fixed-iteration arithmetic vs mpmath
-    # central differences (the truncations are converged, so their
-    # derivative is too).
-    for a0, x0 in [(0.3, 0.7), (0.8, 2.5), (1.7, 0.9), (0.05, 5.0)]:
-        g = float(jax.grad(lambda a: _gamma_upper_lowerable(
-            a, jnp.float64(x0), jnp))(jnp.float64(a0)))
-        eps = 1e-6
-        fd = float((mpmath.gammainc(a0 + eps, x0, mpmath.inf) -
-                    mpmath.gammainc(a0 - eps, x0, mpmath.inf)) / (2 * eps))
-        np.testing.assert_allclose(g, fd, rtol=1e-5, err_msg=(a0, x0))
 
 
 def test_cacciato09_through_interpolator(ds_interpolator):
@@ -1053,8 +980,7 @@ def test_cacciato09_through_interpolator(ds_interpolator):
     ngal_h, ds_h = ds_interpolator.predict(model, check_consistency=False)
     assert ngal_h > 0 and np.all(np.isfinite(ds_h))
 
-    pred = make_predictor(ds_interpolator, model, dtype=jnp.float64,
-                          engine="xla")
+    pred = make_predictor(ds_interpolator, model, dtype=jnp.float64)
     params = params_batch(model, {"log_eta": np.array([0.05, 0.15])},
                           (2,), dtype=jnp.float64)
     ngal, ds = pred(params)

@@ -7,7 +7,7 @@ mesh spanning a REAL process boundary) and checks that
 
 * ``initialize_multihost`` wires the cluster (process_count == 2, the
   global device list spans both processes),
-* the dp-sharded Pallas bundle predictor and
+* the dp-sharded joint predictor and
 * the tp-sharded (bin-sharded, psum-finished) predict kernel
 
 reproduce the single-process float64 host path.  Each worker asserts its
@@ -68,22 +68,21 @@ for i in (0, batch - 1):
     m.param_dict["logM1"] = float(np.float32(logm1[i]))
     oracle.append(tab.predict(m, check_consistency=False))
 
-# --- dp-sharded bundle across the process boundary ------------------
+# --- dp-sharded joint predictor across the process boundary --------
 mesh = make_mesh()                       # (dp=8, tp=1) over BOTH hosts
 assert mesh.devices.size == 8
-f_bundle = make_multi_predictor([tab], model, engine="bundle",
-                                batch_tile=2, mesh=mesh)
+f_dp = make_multi_predictor([tab], model, mesh=mesh)
 params = {k: np.full(batch, v, np.float32)
           for k, v in model.param_dict.items()}
 params["logM1"] = np.asarray(logm1, np.float32)   # numpy: global-safe
-[(ng, xi)] = f_bundle(params)
+[(ng, xi)] = f_dp(params)
 ng = np.asarray(multihost_utils.process_allgather(ng, tiled=True))
 xi = np.asarray(multihost_utils.process_allgather(xi, tiled=True))
 ng, xi = ng[:batch], xi[:batch]
 for i, (ng_h, xi_h) in zip((0, batch - 1), oracle):
-    assert np.isclose(ng[i], ng_h, rtol=2e-5), ("bundle ngal", pid)
+    assert np.isclose(ng[i], ng_h, rtol=2e-5), ("dp ngal", pid)
     rel = np.max(np.abs(xi[i] / xi_h.ravel() - 1))
-    assert rel < 2e-4, ("bundle xi", pid, rel)
+    assert rel < 2e-4, ("dp xi", pid, rel)
 
 # --- tp-sharded predict (psum over the process boundary) -------------
 mesh_tp = make_mesh(table_parallel=4)    # dp=2 x tp=4
@@ -105,7 +104,7 @@ print(f"MULTIHOST_OK {pid}")
 
 
 @pytest.mark.slow
-def test_two_process_multihost_dp_bundle_and_tp_predict(tmp_path):
+def test_two_process_multihost_dp_and_tp_predict(tmp_path):
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]

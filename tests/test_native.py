@@ -1,6 +1,5 @@
 """Native (C++ cell-list) pair counter vs the device kernels."""
 
-import jax
 import numpy as np
 import pytest
 
@@ -163,9 +162,6 @@ def test_auto_strategy_routes_to_native_on_cpu():
     # call bit-for-bit.  smu with non-uniform mu bins must fall back.
     from tabcorr_tpu.ops.paircount import labeled_pair_count
 
-    if jax.default_backend() == "tpu":
-        pytest.skip("CPU routing test")
-
     rng = np.random.default_rng(5)
     N = 1200
     pos = rng.uniform(0, 60.0, (N, 3))
@@ -193,6 +189,25 @@ def test_auto_strategy_routes_to_native_on_cpu():
                                      strategy="scatter")
     np.testing.assert_array_equal(np.asarray(got_auto2),
                                   np.asarray(got_scatter))
+
+
+@pytest.mark.parametrize("backend,kind,mu,mesh,want", [
+    ("cpu", "rppi", None, False, "native"),
+    ("gpu", "rppi", None, False, "native"),
+    ("cpu", "rppi", None, True, "scatter"),
+    ("gpu", "rppi", None, True, "matmul"),
+    ("gpu", "smu", (0.0, 0.3, 1.0), False, "matmul"),
+    ("cpu", "smu", (0.0, 0.5, 1.0), False, "native"),
+])
+def test_auto_strategy_rule(monkeypatch, backend, kind, mu, mesh, want):
+    # The host counter wherever it can serve the call; otherwise the
+    # device sweep that suits the platform.
+    from tabcorr_tpu.ops import paircount
+
+    monkeypatch.setattr(paircount.jax, "default_backend", lambda: backend)
+    got = paircount.auto_strategy(kind, None if mu is None else
+                                  np.asarray(mu), object() if mesh else None)
+    assert got == want
 
 
 def test_artifact_path_falls_back_to_cache(monkeypatch, tmp_path):

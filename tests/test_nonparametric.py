@@ -73,7 +73,7 @@ def test_model_predict_equals_direct_vector(wp_tab, np_model):
 def test_batched_xla_engine_matches_host(wp_tab, np_model):
     """The generic batched predictor traces the piecewise-constant
     occupation and matches the host path."""
-    f = make_predictor(wp_tab, np_model, dtype=jnp.float64, engine="xla")
+    f = make_predictor(wp_tab, np_model, dtype=jnp.float64)
     B = 4
     rng = np.random.default_rng(3)
     overrides = {"n_sat_0": np_model.param_dict["n_sat_0"] *

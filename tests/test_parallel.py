@@ -84,37 +84,11 @@ def test_sharded_predict_matches_plain(fixture, bol_model, table_parallel,
                                rtol=1e-12)
 
 
-def test_bundle_sharded_matches_plain(wp_tabcorr, ds_tabcorr, bol_model):
-    # The flagship dp-sharded bundle: parameter batch split over the dp
-    # mesh axis, table constants replicated, one Pallas kernel per shard
-    # (interpret mode on CPU).  Per-row arithmetic is identical to the
-    # single-device kernel, so results must match to float32 tolerance
-    # even though the batch padding differs (48 pads to 48 vs 64).
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 virtual devices")
-    from tabcorr_tpu.predictor import make_multi_predictor
-
-    mesh = make_mesh(8, table_parallel=1)
-    f_plain = make_multi_predictor([wp_tabcorr, ds_tabcorr], bol_model,
-                                   engine="bundle", batch_tile=8)
-    f_shard = make_multi_predictor([wp_tabcorr, ds_tabcorr], bol_model,
-                                   engine="bundle", batch_tile=8,
-                                   mesh=mesh)
-    params = _batch(bol_model, 48, dtype=jnp.float32)
-    out_p = f_plain(params)
-    out_s = f_shard(params)
-    for (ng_p, xi_p), (ng_s, xi_s) in zip(out_p, out_s):
-        np.testing.assert_allclose(np.asarray(ng_s), np.asarray(ng_p),
-                                   rtol=1e-6)
-        np.testing.assert_allclose(
-            np.asarray(xi_s), np.asarray(xi_p), rtol=1e-5,
-            atol=1e-6 * float(np.max(np.abs(np.asarray(xi_p)))))
-
-
-def test_bundle_sharded_ensemble_step(wp_tabcorr, bol_model):
-    # Full multi-chip MCMC hot loop: stretch-move ensemble with the
+def test_sharded_ensemble_step_matches_plain(wp_tabcorr, bol_model):
+    # Full multi-device MCMC hot loop: stretch-move ensemble with the
     # vectorized Gaussian log posterior evaluated through the dp-sharded
-    # bundle.  The sharded chain must match the single-device chain.
+    # joint predictor.  The sharded chain must match the single-device
+    # chain.
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
     from tabcorr_tpu.mcmc import ensemble_step, make_gaussian_logpost_batched
@@ -128,8 +102,7 @@ def test_bundle_sharded_ensemble_step(wp_tabcorr, bol_model):
 
     chains = {}
     for key, mesh_arg in (("plain", None), ("sharded", mesh)):
-        f = make_multi_predictor([wp_tabcorr], bol_model, engine="bundle",
-                                 batch_tile=8, mesh=mesh_arg)
+        f = make_multi_predictor([wp_tabcorr], bol_model, mesh=mesh_arg)
         log_prob = make_gaussian_logpost_batched(
             f, names, base, [data.ravel()], [inv_cov])
         rng = np.random.default_rng(11)
@@ -147,30 +120,6 @@ def test_bundle_sharded_ensemble_step(wp_tabcorr, bol_model):
                                rtol=2e-6, atol=1e-7)
     np.testing.assert_allclose(chains["sharded"][1], chains["plain"][1],
                                rtol=1e-4, atol=1e-3)
-
-
-def test_bundle_sharded_hot_loop_is_collective_free(wp_tabcorr, ds_tabcorr,
-                                                    bol_model):
-    # Compile-level proof of linear dp scaling: with the parameter batch
-    # sharded over dp and all table constants replicated, the compiled
-    # sharded bundle predict must contain NO cross-device collectives —
-    # every device runs an independent 1/N slice, so batch throughput
-    # scales linearly with the mesh by construction (the claim VERDICT r2
-    # #1 asks bench to demonstrate; on single-chip hardware this HLO
-    # check is the strongest available evidence).
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 virtual devices")
-    from tabcorr_tpu.predictor import make_multi_predictor
-
-    mesh = make_mesh(8, table_parallel=1)
-    f = make_multi_predictor([wp_tabcorr, ds_tabcorr], bol_model,
-                             engine="bundle", batch_tile=8, mesh=mesh)
-    params = _batch(bol_model, 64, dtype=jnp.float32)
-    hlo = jax.jit(f).lower(params).compile().as_text()
-    for op in ("all-reduce", "all-gather", "all-to-all",
-               "collective-permute", "reduce-scatter",
-               "collective-broadcast"):
-        assert op not in hlo, f"hot loop contains {op}"
 
 
 def test_shard_table_padding(wp_tabcorr):
@@ -407,34 +356,6 @@ def test_jitted_heterogeneous_binning_matches_host(ds_interpolator, model):
     ngal, xi = f(params)
     assert np.isclose(float(ngal[0]), want[0], rtol=1e-10)
     np.testing.assert_allclose(np.asarray(xi[0]), want[1], rtol=1e-10)
-
-
-def test_interpolator_fused_sharded_matches_plain(ds_interpolator, model):
-    # The dp-sharded stacked-grid Interpolator bundle must match the
-    # unsharded fused engine (grid tables replicated, batch split).
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 virtual devices")
-    from tabcorr_tpu.predictor import make_predictor
-
-    mesh = make_mesh(8, table_parallel=1)
-    model.param_dict["log_eta"] = 0.05
-    rng = np.random.default_rng(17)
-    B = 48
-    params = params_batch(
-        model, {"log_eta": rng.uniform(-0.3, 0.3, B),
-                "logM1": 13.9 + 0.05 * rng.normal(size=B)}, (B,),
-        dtype=jnp.float32)
-    f_plain = make_predictor(ds_interpolator, model, engine="fused",
-                             accuracy="scaled")
-    f_shard = make_predictor(ds_interpolator, model, engine="fused",
-                             accuracy="scaled", mesh=mesh)
-    ng_p, xi_p = f_plain(params)
-    ng_s, xi_s = f_shard(params)
-    np.testing.assert_allclose(np.asarray(ng_s), np.asarray(ng_p),
-                               rtol=1e-6)
-    np.testing.assert_allclose(np.asarray(xi_s), np.asarray(xi_p),
-                               rtol=1e-5, atol=1e-6 * float(
-                                   np.nanmax(np.abs(np.asarray(xi_p)))))
 
 
 def test_initialize_multihost_single_process():

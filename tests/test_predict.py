@@ -159,7 +159,7 @@ def test_gradients_finite_and_match_fd(wp_tabcorr, bol_model):
 
 
 def test_float32_accuracy_within_north_star(wp_tabcorr, bol_model):
-    # The TPU fast path (float32 table) must stay within ~1e-6 relative of
+    # The device fast path (float32 table) must stay within ~1e-6 relative of
     # the float64 reference-parity path (BASELINE.json north star).
     ngal_ref, xi_ref = wp_tabcorr.predict(bol_model, check_consistency=False)
     table = wp_tabcorr.table_data(n_gauss=10, dtype=jnp.float32)
@@ -201,22 +201,8 @@ def test_matrix_reassignment_invalidates_caches(wp_tabcorr, bol_model):
         np.asarray(tab.dense_matrix()).astype(np.float32), rtol=1e-6)
 
 
-def test_fused_vmem_guard():
-    # engine='auto' must fall back to XLA when the kernel-resident
-    # constants would overflow VMEM (e.g. a 64-node stacked grid).
-    import tabcorr_tpu as tt
-    from tabcorr_tpu.interpolator import Interpolator
-    from tabcorr_tpu.predictor import _fused_constants_fit_vmem
+def test_make_predictor_rejects_other_objects(bol_model):
+    from tabcorr_tpu.predictor import make_predictor
 
-    tab = tt.TabCorr.read("tests/data/examples/bolplanck_wp.hdf5")
-    assert _fused_constants_fit_vmem(tab, 10)
-
-    interp = tt.Interpolator.read(
-        "tests/data/examples/synthetic_xi_ell_interp.hdf5")
-    assert _fused_constants_fit_vmem(interp, 10)
-
-    big = object.__new__(Interpolator)
-    big.param_dict_table = {
-        "tabcorr_index": list(range(len(interp.tabcorr_list))) * 16}
-    big.tabcorr_list = interp.tabcorr_list
-    assert not _fused_constants_fit_vmem(big, 10)
+    with pytest.raises(TypeError):
+        make_predictor(object(), bol_model)

@@ -6,9 +6,8 @@ result clipped to [0, 1]) and passes exactly through its control
 points, population decomposition sums exactly ('all' == quiescent +
 active),
 gradients flow, the residual absorption is exact, and the family runs
-through the table/predictor machinery including the fused engines
-(the quiescent-fraction interpolation is clip/where arithmetic, so the
-model stays bundle-eligible).
+through the table/predictor machinery (the quiescent-fraction
+interpolation is clip/where arithmetic, free of gathers).
 """
 
 import numpy as np
@@ -225,7 +224,7 @@ def test_vectorized_predictor_matches_host(wp_tabcorr):
     model = tt.Tinker13Model(threshold=10.5,
                              redshift=wp_tabcorr.attrs["redshift"])
     ngal_h, xi_h = wp_tabcorr.predict(model, check_consistency=False)
-    pred = wp_tabcorr.make_predictor(model, vectorized=True, engine="xla",
+    pred = wp_tabcorr.make_predictor(model, vectorized=True,
                                      dtype=jnp.float64)
     batch = {k: np.full(3, v) for k, v in model.param_dict.items()}
     batch["quiescent_fraction_ordinates_param2"][1] = 0.5
@@ -235,38 +234,35 @@ def test_vectorized_predictor_matches_host(wp_tabcorr):
     assert float(ngal[1]) != float(ngal[0])
 
 
-def test_bundle_eligible_and_gather_free(wp_tabcorr):
-    """The traced kernel occupation is gather-free (Mosaic constraint)
-    and the interpret-mode bundle matches the XLA engine at the float32
-    contract."""
+def test_float32_multi_predictor_matches_float64_and_gather_free(
+        wp_tabcorr):
+    """The traced occupation is gather-free and the float32 joint
+    predictor matches the float64 one at the float32 contract."""
     from tabcorr_tpu.predictor import (make_multi_predictor,
                                        occupation_functions, params_batch)
-    from tabcorr_tpu.utils.backend import pallas_lowering
 
     model = tt.Tinker13Model(threshold=10.5,
                              redshift=wp_tabcorr.attrs["redshift"])
-    assert model.supports_fused_engine
 
     occ_c, occ_s = occupation_functions(model)
     logm = jnp.linspace(11.0, 15.0, 32, dtype=jnp.float32)
     sec = jnp.full_like(logm, 0.5)
     p32 = {k: jnp.asarray(v, dtype=jnp.float32)
            for k, v in model.param_dict.items()}
-    with pallas_lowering():
-        jaxpr = jax.make_jaxpr(lambda p: occ_c(p, logm, sec))(p32)
+    jaxpr = jax.make_jaxpr(lambda p: occ_c(p, logm, sec))(p32)
     prims = {eqn.primitive.name for eqn in jaxpr.eqns}
     assert "gather" not in prims and "dynamic_slice" not in prims
 
-    f_b = make_multi_predictor([wp_tabcorr], model, engine="bundle",
-                               batch_tile=8, interpret=True)
-    f_x = make_multi_predictor([wp_tabcorr], model, engine="xla")
+    f_b = make_multi_predictor([wp_tabcorr], model)
+    f_x = make_multi_predictor([wp_tabcorr], model, dtype=jnp.float64)
     params = params_batch(
         model, {"smhm_m1_0_quiescent":
                 model.param_dict["smhm_m1_0_quiescent"] +
                 0.05 * np.random.default_rng(0).normal(size=8)},
         (8,), dtype=jnp.float32)
     [(ng_b, xi_b)] = f_b(params)
-    [(ng_x, xi_x)] = f_x(params)
+    [(ng_x, xi_x)] = f_x({k: jnp.asarray(v, jnp.float64)
+                          for k, v in params.items()})
     np.testing.assert_allclose(np.asarray(ng_b), np.asarray(ng_x),
                                rtol=2e-5)
     np.testing.assert_allclose(
